@@ -1,0 +1,76 @@
+"""State carried across from the JAX package, given as numpy.
+
+This path has no network weights; what is carried between the two packages
+is solver state.  Each function takes a record of ``ocs2_tpu`` whose leaves
+were turned into numpy arrays by the caller (``rec._asdict()`` of
+``jax.tree.map(np.asarray, rec)``; a mapping or an object with the same
+field names) and returns the port's record as float32 tensors on ``device``.
+The port never sees a JAX type.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .core.reference import TargetTrajectories
+from .oc.time_discretization import TimeGrid
+from .ops.riccati import LqrCoeffs, LqrSolution
+from .solvers.al import AlState
+
+
+def _field(rec: Any, name: str):
+    return rec[name] if isinstance(rec, Mapping) else getattr(rec, name)
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(v, dtype=np.float32), device=device)
+
+
+def _record(cls, rec: Any, device):
+    return cls(**{name: _f32(_field(rec, name), device) for name in cls._fields})
+
+
+def lqr_coeffs_from_numpy(rec: Any, device="cuda") -> LqrCoeffs:
+    return _record(LqrCoeffs, rec, device)
+
+
+def lqr_solution_from_numpy(rec: Any, device="cuda") -> LqrSolution:
+    return _record(LqrSolution, rec, device)
+
+
+def target_trajectories_from_numpy(rec: Any, device="cuda") -> TargetTrajectories:
+    return _record(TargetTrajectories, rec, device)
+
+
+def al_state_from_numpy(rec: Any, device="cuda") -> AlState:
+    return _record(AlState, rec, device)
+
+
+def params_from_numpy(params: Mapping, device="cuda") -> dict:
+    """The ``{"target": TargetTrajectories, ...}`` parameter dict of a model's
+    ``make_params``: target trajectories and AL states become the port's
+    records, any other array leaf a float32 tensor."""
+    out = {}
+    for key, val in params.items():
+        fields = set(val.keys()) if isinstance(val, Mapping) else set(
+            getattr(val, "_fields", ())
+        )
+        if fields == set(TargetTrajectories._fields):
+            out[key] = target_trajectories_from_numpy(val, device)
+        elif fields == set(AlState._fields):
+            out[key] = al_state_from_numpy(val, device)
+        else:
+            out[key] = _f32(val, device)
+    return out
+
+
+def time_grid_from_numpy(rec: Any, device="cuda") -> TimeGrid:
+    """A TimeGrid of tensors on ``device`` (the form ``TimeGrid.device``
+    gives), from the host grid's numpy leaves."""
+    return TimeGrid(
+        times=np.asarray(_field(rec, "times"), np.float32),
+        is_jump=np.asarray(_field(rec, "is_jump"), np.float32),
+        modes=np.asarray(_field(rec, "modes"), np.int32),
+    ).device(device)

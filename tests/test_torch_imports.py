@@ -1,0 +1,121 @@
+"""The port stands alone: importing every ocs2_tpu_torch module (and reading
+chip_smoke.py) pulls in neither JAX nor the JAX package, starts no process
+(so no compiler) and builds nothing."""
+import ast
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "ocs2_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+_FRESH = textwrap.dedent("""
+    import importlib, pkgutil, subprocess, sys, os
+
+    def refuse(*a, **k):
+        raise AssertionError(f"a process was started while importing: {a}")
+
+    subprocess.Popen = subprocess.run = subprocess.check_output = refuse
+    os.system = refuse
+    import ocs2_tpu_torch
+    names = ["ocs2_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(ocs2_tpu_torch.__path__, "ocs2_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    roots = {m.split(".")[0] for m in sys.modules}
+    bad = sorted(roots & {"jax", "jaxlib", "ocs2_tpu", "flax", "optax"})
+    assert not bad, bad
+    from ocs2_tpu_torch.ops import _build
+    assert not _build._LOADED
+    print("IMPORTED", len(names), int(_build.BUILD_DIR.exists()))
+""")
+
+
+@pytest.fixture(scope="module")
+def fresh_import():
+    existed = (PKG / "build").exists()
+    proc = subprocess.run(
+        [sys.executable, "-c", _FRESH], cwd=REPO, capture_output=True, text=True, timeout=300)
+    return proc, existed
+
+
+def test_every_module_imports_without_jax_or_reference_package(fresh_import):
+    proc, _ = fresh_import
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "IMPORTED" in proc.stdout
+    # core, oc, ops, solvers, models + convert: well over a dozen modules.
+    assert int(proc.stdout.split()[1]) >= 20
+
+
+def test_importing_builds_nothing(fresh_import):
+    proc, existed = fresh_import
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert int(proc.stdout.split()[2]) == int(existed)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_source_names_no_jax_import(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for mod in mods:
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "ocs2_tpu"), (
+                f"{path.name}: import of {mod}")
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    from ocs2_tpu_torch import convert
+    from ocs2_tpu_torch.core import reference
+    from ocs2_tpu_torch.models import ballbot
+    from ocs2_tpu_torch.oc import problem, time_discretization
+    from ocs2_tpu_torch.solvers import al, ddp
+
+    fns = [
+        ddp.solve, ballbot.make_problem, ballbot.make_params, problem.quadratic_cost,
+        problem.quadratic_final_cost, problem.OptimalControlProblem.constraint_dims,
+        reference.TargetTrajectories.create, reference.TargetTrajectories.constant,
+        time_discretization.TimeGrid.device, al.AlState.init,
+        convert.lqr_coeffs_from_numpy, convert.lqr_solution_from_numpy,
+        convert.target_trajectories_from_numpy, convert.params_from_numpy,
+        convert.al_state_from_numpy, convert.time_grid_from_numpy,
+    ]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and "no CUDA device" in proc.stderr
+
+
+def test_convert_params_roundtrip():
+    import numpy as np
+    import torch
+
+    from ocs2_tpu_torch import convert
+    from ocs2_tpu_torch.core.reference import TargetTrajectories
+    from ocs2_tpu_torch.solvers.al import AlState
+
+    target = dict(times=np.zeros(1), states=np.ones((1, 10)), inputs=np.zeros((1, 3)))
+    al_np = dict(lmbd_eq=np.zeros((4, 1)), lmbd_state_eq=np.zeros((5, 0)),
+                 lmbd_ineq=np.ones((4, 2)), lmbd_state_ineq=np.zeros((5, 0)),
+                 lmbd_final_eq=np.zeros((0,)), rho=np.float64(10.0))
+    p = convert.params_from_numpy(
+        {"target": target, "al": al_np, "gain": np.arange(3.0)}, device="cpu")
+    assert isinstance(p["target"], TargetTrajectories) and isinstance(p["al"], AlState)
+    assert p["target"].states.dtype == torch.float32 and p["al"].rho.dtype == torch.float32
+    assert p["gain"].tolist() == [0.0, 1.0, 2.0] and p["al"].lmbd_ineq.shape == (4, 2)

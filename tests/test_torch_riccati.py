@@ -1,0 +1,218 @@
+"""Riccati sweeps of the port vs the JAX package, on the CPU.
+
+The CUDA kernel itself runs only on a card; what is held here is its plain
+PyTorch version (the arithmetic the kernel repeats) against the JAX batched
+path and against the Pallas kernel in interpret mode, the single-scenario
+sweep including its NaN behaviour, the forward pass, and the wrapper's
+argument checks (which run before any build and need no card).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ocs2_tpu.ops import riccati as jriccati
+from ocs2_tpu.ops.riccati_pallas import lqr_backward_pallas
+
+from ocs2_tpu_torch import convert
+from ocs2_tpu_torch.ops import riccati, riccati_cuda
+
+# float32 reassociation: the order of the k-accumulation differs.
+RTOL, ATOL = 2e-4, 1e-5
+FIELDS = riccati.LqrSolution._fields
+
+
+def _psd(rng, shape_prefix, n, eps):
+    m = rng.standard_normal(shape_prefix + (n, n))
+    return m @ np.swapaxes(m, -1, -2) / n + eps * np.eye(n)
+
+
+def lq_numpy(batch, horizon, nx, nu, seed):
+    """Random LQ data as numpy float32, leaves [B, N, ...] (the recipe of
+    tests/lq_fixtures.py, drawn with numpy so both packages get the same)."""
+    rng = np.random.default_rng(seed)
+    pre = (batch, horizon)
+    leaves = dict(
+        A=rng.standard_normal(pre + (nx, nx)) / np.sqrt(nx) + 0.5 * np.eye(nx),
+        B=0.5 * rng.standard_normal(pre + (nx, nu)),
+        b=0.1 * rng.standard_normal(pre + (nx,)),
+        Qxx=_psd(rng, pre, nx, 0.2),
+        qx=rng.standard_normal(pre + (nx,)),
+        Quu=_psd(rng, pre, nu, 0.5),
+        qu=rng.standard_normal(pre + (nu,)),
+        Qux=0.05 * rng.standard_normal(pre + (nu, nx)),
+        Qf=_psd(rng, (batch,), nx, 0.3),
+        qf=rng.standard_normal((batch, nx)),
+    )
+    return {k: v.astype(np.float32) for k, v in leaves.items()}
+
+
+def both(leaves):
+    return (
+        jriccati.LqrCoeffs(**{k: jnp.asarray(v) for k, v in leaves.items()}),
+        convert.lqr_coeffs_from_numpy(leaves, device="cpu"),
+    )
+
+
+CASES = {
+    "b256_n12_nx5_nu3_regs": (256, 12, 5, 3, np.tile(np.float32([0.0, 1e-6, 0.1, 2.0]), 64)),
+    "b512_n6_nx8_nu4": (512, 6, 8, 4, np.full((512,), 1e-6, np.float32)),
+}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def batched_case(request):
+    batch, n, nx, nu, regs = CASES[request.param]
+    jc, tc = both(lq_numpy(batch, n, nx, nu, seed=1))
+    mine = riccati._lqr_backward_batched(tc, torch.as_tensor(regs))
+    ref_xla = jax.jit(jriccati._lqr_backward_batched)(jc, jnp.asarray(regs))
+    ref_pallas = lqr_backward_pallas(jc, jnp.asarray(regs), interpret=True)
+    return mine, ref_xla, ref_pallas
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_plain_version_matches_jax_batched(batched_case, field):
+    mine, ref, _ = batched_case
+    np.testing.assert_allclose(
+        getattr(mine, field).numpy(), np.asarray(getattr(ref, field)),
+        rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_plain_version_matches_pallas_interpret(batched_case, field):
+    mine, _, ref = batched_case
+    np.testing.assert_allclose(
+        getattr(mine, field).numpy(), np.asarray(getattr(ref, field)),
+        rtol=RTOL, atol=ATOL)
+
+
+def test_lqr_backward_dispatches_to_plain_on_cpu():
+    _, tc = both(lq_numpy(4, 5, 3, 2, seed=2))
+    before = riccati_cuda.launch_count
+    a = riccati.lqr_backward(tc, torch.zeros(4))
+    b = riccati._lqr_backward_batched(tc, 0.0)
+    assert riccati_cuda.launch_count == before
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(a, f).numpy(), getattr(b, f).numpy())
+    assert a.gains.shape == (4, 5, 2, 3) and a.value_S.shape == (4, 6, 3, 3)
+    assert a.dv1.shape == (4,)
+
+
+def test_pivot_clamp_matches_jax_on_indefinite_quu():
+    """The batched form clamps Cholesky pivots at sqrt(max(p, 1e-12)) instead
+    of failing: on a scenario with an indefinite Quu it goes on as the JAX
+    batched path does (same finite/non-finite pattern), and the other
+    scenarios of the batch are untouched."""
+    leaves = lq_numpy(8, 4, 3, 2, seed=3)
+    leaves["Quu"][2] = -50.0 * np.eye(2, dtype=np.float32)
+    jc, tc = both(leaves)
+    mine = riccati._lqr_backward_batched(tc, 0.0)
+    ref = jriccati._lqr_backward_batched(jc, jnp.zeros(8))
+    others = [0, 1, 3, 4, 5, 6, 7]
+    for f in FIELDS:
+        a, b = getattr(mine, f).numpy(), np.asarray(getattr(ref, f))
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b), err_msg=f)
+        np.testing.assert_allclose(a[others], b[others], rtol=RTOL, atol=ATOL, err_msg=f)
+    # The last node is reached with finite values: its clamped pivot shows
+    # as a huge gain, not as a failure.
+    assert np.isfinite(mine.gains[2, 3].numpy()).all()
+    assert np.abs(mine.gains[2].numpy()[np.isfinite(mine.gains[2].numpy())]).max() > 1e3
+
+
+def _single(leaves, i):
+    one = {k: v[i] for k, v in leaves.items()}
+    return both(one)
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_single_matches_jax(field):
+    jc, tc = _single(lq_numpy(2, 10, 6, 3, seed=4), 0)
+    mine = riccati._lqr_backward_single(tc, 1e-6)
+    ref = jax.jit(jriccati._lqr_backward_single)(jc, jnp.asarray(1e-6))
+    np.testing.assert_allclose(
+        getattr(mine, field).numpy(), np.asarray(getattr(ref, field)),
+        rtol=RTOL, atol=ATOL)
+
+
+def test_single_nan_placement_on_non_pd_quu():
+    """The single-scenario sweep does not clamp: from the node whose Quu_hat
+    is not positive definite backwards everything is NaN, as in JAX."""
+    leaves = lq_numpy(1, 8, 4, 2, seed=5)
+    leaves["Quu"][0, 5] = -100.0 * np.eye(2, dtype=np.float32)
+    jc, tc = _single(leaves, 0)
+    mine = riccati._lqr_backward_single(tc, 0.0)
+    ref = jriccati._lqr_backward_single(jc, jnp.asarray(0.0))
+    for f in FIELDS:
+        a, b = getattr(mine, f).numpy(), np.asarray(getattr(ref, f))
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f)
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=f)
+    assert np.isnan(mine.gains[:6].numpy()).all()
+    assert np.isfinite(mine.gains[6:].numpy()).all()
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_lqr_forward_matches_jax(batched):
+    leaves = lq_numpy(3, 7, 5, 2, seed=6)
+    rng = np.random.default_rng(7)
+    dx0 = rng.standard_normal((3, 5)).astype(np.float32)
+    jc, tc = both(leaves)
+    jsol = jriccati._lqr_backward_batched(jc, jnp.zeros(3))
+    tsol = convert.lqr_solution_from_numpy(
+        jax.tree.map(np.asarray, jsol)._asdict(), device="cpu")
+    jdxs, jdus = jax.vmap(jriccati.lqr_forward)(jc, jsol, jnp.asarray(dx0))
+    if batched:
+        dxs, dus = riccati.lqr_forward(tc, tsol, torch.as_tensor(dx0))
+    else:
+        pick = lambda rec, i: type(rec)(*(leaf[i] for leaf in rec))  # noqa: E731
+        outs = [riccati.lqr_forward(pick(tc, i), pick(tsol, i), torch.as_tensor(dx0[i]))
+                for i in range(3)]
+        dxs = torch.stack([o[0] for o in outs])
+        dus = torch.stack([o[1] for o in outs])
+    np.testing.assert_allclose(dxs.numpy(), np.asarray(jdxs), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(dus.numpy(), np.asarray(jdus), rtol=1e-4, atol=1e-5)
+
+
+def _good():
+    return convert.lqr_coeffs_from_numpy(lq_numpy(4, 3, 5, 2, seed=8), device="cpu")
+
+
+def test_cuda_wrapper_accepts_checked_inputs_and_reports_dims():
+    assert riccati_cuda.check_inputs(_good(), torch.zeros(4)) == (4, 3, 5, 2)
+    assert riccati_cuda.check_inputs(_good(), 0.1) == (4, 3, 5, 2)
+
+
+@pytest.mark.parametrize("breakage, exc, match", [
+    (lambda c: c._replace(A=c.A.double()), TypeError, "float32"),
+    (lambda c: c._replace(Qxx=c.Qxx.transpose(-1, -2)), ValueError, "contiguous"),
+    (lambda c: c._replace(Qux=c.Qux[:, :, :, :4].contiguous()), ValueError, "Qux"),
+    (lambda c: c._replace(b=c.b[0]), ValueError, "dims"),
+    (lambda c: convert.lqr_coeffs_from_numpy(lq_numpy(2, 2, 33, 2, seed=9), device="cpu"),
+     ValueError, "nx, nu <= 32"),
+    (lambda c: convert.lqr_coeffs_from_numpy(lq_numpy(2, 2, 4, 33, seed=9), device="cpu"),
+     ValueError, "nx, nu <= 32"),
+])
+def test_cuda_wrapper_refuses_bad_inputs_without_a_card(breakage, exc, match):
+    before = riccati_cuda.launch_count
+    with pytest.raises(exc, match=match):
+        riccati_cuda.lqr_backward_cuda(breakage(_good()), torch.zeros(4))
+    assert riccati_cuda.launch_count == before
+
+
+def test_cuda_wrapper_refuses_bad_reg_and_cpu_tensors():
+    with pytest.raises(ValueError, match="reg"):
+        riccati_cuda.lqr_backward_cuda(_good(), torch.zeros(3))
+    with pytest.raises(TypeError, match="reg"):
+        riccati_cuda.lqr_backward_cuda(_good(), torch.zeros(4, dtype=torch.float64))
+    # No fallback: a CPU tensor is refused, not sent to the plain version.
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        riccati_cuda.lqr_backward_cuda(_good(), torch.zeros(4))
+
+
+def test_library_name_depends_on_pair_and_source():
+    from ocs2_tpu_torch.ops import _build
+
+    a = _build.library_path(riccati_cuda.SOURCE, riccati_cuda._defines(10, 3))
+    b = _build.library_path(riccati_cuda.SOURCE, riccati_cuda._defines(12, 4))
+    assert a != b and a.parent == _build.BUILD_DIR
+    assert "nx10" in a.name and "nu3" in a.name and a.suffix == ".so"
