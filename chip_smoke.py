@@ -5,9 +5,17 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout, holds
 each against its plain PyTorch version on the card, then drives the port's
-main path — ``ddp.solve`` (iLQR) on the ballbot problem for a batch of 4096
-scenarios, 32 intervals — and checks that it went through the kernels.  Each
-phase prints one JSON line; the last line is
+main paths and checks that they went through the kernels:
+
+* ``ddp.solve`` (iLQR) on the ballbot problem, a batch of 4096 scenarios,
+  32 intervals;
+* ``sqp.solve`` on the legged-robot problem (SRBD, nx = nu = 24, 100 intervals
+  over 1 s, rk2, trot, soft friction cone, projected 12-row foot constraint,
+  10 iterations at most): the control-rate tick at B = 1 as chains of
+  receding-horizon ticks, and a batch of 256 scenarios, whose backward sweep is
+  the CUDA kernel at (nx, nu) = (24, 12).
+
+Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when there
 is no CUDA device or when any phase fails.  Imports neither JAX nor the JAX
 package.
@@ -36,6 +44,10 @@ RTOL, ATOL = 2e-4, 1e-5  # float32 reassociation: the k-accumulation order diffe
 KERNEL_SHAPES = [(10, 3, 4096, 32), (12, 4, 4096, 40), (24, 12, 256, 100), (10, 3, 1000, 8),
                  (3, 5, 77, 6)]
 MAIN_SHAPE = KERNEL_SHAPES[0]
+LEGGED_SHAPE = KERNEL_SHAPES[2]
+DEVICE = "cuda"  # every phase runs on the card; main() refuses to start without one
+# Whole solves: the kernel's route against its plain version's.
+SOLVE_ATOL, SOLVE_RTOL = 1e-3, 1e-4
 REG_VALUES = (0.0, 1e-6, 0.1, 2.0)
 
 
@@ -211,7 +223,7 @@ def main_path(torch, riccati_cuda):
     for f in ("xs", "us"):
         a, b = getattr(k_sol, f), getattr(p_sol, f)
         err[f] = float((a - b).abs().max())
-        assert bool(((a - b).abs() <= 1e-3 + 1e-4 * b.abs()).all()), (f, err[f])
+        assert bool(((a - b).abs() <= SOLVE_ATOL + SOLVE_RTOL * b.abs()).all()), (f, err[f])
 
     sec = statistics.median(seconds)
     rec = {
@@ -228,6 +240,277 @@ def main_path(torch, riccati_cuda):
     }
     emit(rec)
     return rec
+
+
+# -- the legged-robot SQP tick --------------------------------------------------
+
+_, _, LEGGED_BATCH, LEGGED_N = LEGGED_SHAPE
+LEGGED_HORIZON = 1.0
+
+
+def legged_setup(torch):
+    """Problem, grid, params, cold-start inputs and settings of the flagship
+    tick: trot with a 0.7 s cycle over a 1 s horizon of 100 intervals."""
+    from ocs2_tpu_torch.models.legged_robot import interface, model
+    from ocs2_tpu_torch.models.legged_robot.gait import GaitSchedule, trot_gait
+    from ocs2_tpu_torch.oc.time_discretization import make_time_grid
+    from ocs2_tpu_torch.solvers import sqp
+
+    ms = GaitSchedule(trot_gait(0.7)).mode_schedule(0.0, LEGGED_HORIZON)
+    grid = make_time_grid(0.0, LEGGED_HORIZON, LEGGED_N, event_times=ms.event_times,
+                          mode_sequence=ms.mode_sequence)
+    u0 = model.weight_compensating_input(np.ones(4, np.float32), DEVICE)
+    return {
+        "problem": interface.make_problem(device=DEVICE), "grid": grid,
+        "params": interface.make_params(grid, device=DEVICE),
+        "x0": model.default_state(DEVICE),
+        "us_init": u0[None].expand(LEGGED_N, model.NU).contiguous(),
+        "settings": sqp.SqpSettings(max_iterations=10, integrator="rk2"),
+    }
+
+
+def legged_solve(cfg, x0, us_init, **kw):
+    from ocs2_tpu_torch.solvers import sqp
+
+    return sqp.solve(cfg["problem"], cfg["grid"], x0, cfg["params"], us_init=us_init,
+                     settings=cfg["settings"], device=DEVICE, **kw)
+
+
+def check_legged_solution(torch, cfg, sol, what):
+    """Finite trajectories, at least one iteration, every accepted step passed
+    the filter (merit or total violation fell from one history row to the
+    next; the projected problem has no multiplier update between rows), and
+    the projected foot constraint holds at every node of the result."""
+    from ocs2_tpu_torch.models.legged_robot import constraints
+    from ocs2_tpu_torch.oc.approx import node_params
+
+    assert bool(torch.isfinite(sol.xs).all()) and bool(torch.isfinite(sol.us).all()), what
+    assert int(sol.iterations.min()) >= 1, what
+    h = sol.history
+    ran = torch.arange(h.merit.shape[1], device=h.merit.device)[None, 1:] < sol.iterations[:, None]
+    fell = (h.merit[:, 1:] < h.merit[:, :-1]) | (h.total_viol[:, 1:] < h.total_viol[:, :-1])
+    assert bool((fell | (h.step_size[:, 1:] == 0) | ~ran).all()), f"{what}: filter"
+    grid = cfg["grid"].device(DEVICE)
+    nodes = torch.arange(LEGGED_N, device=DEVICE)
+    g = constraints.foot_constraint(
+        grid.times[:-1], sol.xs[:, :-1], sol.us, node_params(cfg["params"], grid, nodes))
+    worst = float(g.abs().max())
+    assert worst <= 1e-3, f"{what}: |foot_constraint| = {worst}"
+    return worst
+
+
+def legged_tick_b1(torch, riccati_cuda, cfg, chains=5, ticks_per_chain=8):
+    """The control-rate tick: chains of dependent receding-horizon ticks (the
+    next tick starts at the solved xs[1], warm-started with the solved
+    inputs), one synchronise per chain."""
+    riccati_cuda.launch_count = 0
+    t0 = time.perf_counter()
+    cold = legged_solve(cfg, cfg["x0"], cfg["us_init"])  # also the warm-up
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    check_legged_solution(torch, cfg, cold, "b1 cold tick")
+
+    x, us = cfg["x0"], cfg["us_init"]
+    chain_s, ticks, worst_g = [], [], 0.0
+    for _ in range(chains):
+        sols = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks_per_chain):
+            sol = legged_solve(cfg, x, us)
+            x, us = sol.xs[0, 1], sol.us[0]
+            sols.append(sol)
+        torch.cuda.synchronize()
+        chain_s.append(time.perf_counter() - t0)
+        for sol in sols:
+            worst_g = max(worst_g, check_legged_solution(torch, cfg, sol, "b1 tick"))
+            ticks.append(sol)
+    assert riccati_cuda.launch_count == 0, "the B = 1 lane takes the single-scenario sweep"
+    per_tick_ms = [1e3 * s / ticks_per_chain for s in chain_s]
+    last = ticks[-1].performance
+    rec = {
+        "phase": "legged_tick_b1", "B": 1, "N": LEGGED_N, "nx": 24, "nu": 24,
+        "max_iterations": cfg["settings"].max_iterations, "chains": chains,
+        "ticks_per_chain": ticks_per_chain,
+        "tick_ms_median": statistics.median(per_tick_ms), "tick_ms_worst": max(per_tick_ms),
+        "ticks_per_s": 1e3 / statistics.median(per_tick_ms),
+        "cold_tick_ms_first_call": 1e3 * cold_s, "cold_tick_iterations": int(cold.iterations[0]),
+        "iterations_per_tick": [int(s.iterations[0]) for s in ticks],
+        "converged_per_tick": [bool(s.converged[0]) for s in ticks],
+        "dynamics_violation_sse": float(last.dynamics_violation_sse[0]),
+        "equality_constraints_sse": float(last.equality_constraints_sse[0]),
+        "worst_abs_foot_constraint": worst_g, "riccati_launches": 0,
+    }
+    emit(rec)
+    return rec, cold
+
+
+def compare_solves(torch, a, b, what):
+    """Equal iteration counts, xs/us within SOLVE_ATOL + SOLVE_RTOL |value|."""
+    assert bool((a.iterations == b.iterations).all()), (
+        f"{what}: iteration counts differ", a.iterations.tolist(), b.iterations.tolist())
+    err = {}
+    for f in ("xs", "us"):
+        x, y = getattr(a, f), getattr(b, f)
+        err[f] = float((x - y).abs().max())
+        assert bool(((x - y).abs() <= SOLVE_ATOL + SOLVE_RTOL * y.abs()).all()), (what, f, err[f])
+    return err
+
+
+def legged_tick_b256(torch, riccati_cuda, cfg, cold_b1, solves=3):
+    """The scenario batch: 256 perturbed initial states, shared warm start and
+    params; its backward sweep is the CUDA kernel at (nx, nu) = (24, 12)."""
+    batch, nx = LEGGED_BATCH, 24
+    i = torch.arange(batch, dtype=torch.float32, device=DEVICE)[:, None]
+    j = torch.arange(nx, dtype=torch.float32, device=DEVICE)[None, :]
+    x0s = cfg["x0"][None] + 1e-3 * torch.sin(i * j)
+
+    def solve(x0, **kw):
+        sol = legged_solve(cfg, x0, cfg["us_init"], **kw)
+        torch.cuda.synchronize()
+        return sol
+
+    solve(x0s)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    riccati_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
+    seconds, sols = [], []
+    for _ in range(solves):
+        t0 = time.perf_counter()
+        sols.append(solve(x0s))
+        seconds.append(time.perf_counter() - t0)
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    sol = sols[-1]
+    sweeps_run = sum(int(s.iterations.max()) for s in sols)
+    assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
+    assert dims == (batch, LEGGED_N, 24, 12), dims
+    assert sol.xs.shape == (batch, LEGGED_N + 1, 24) and sol.us.shape == (batch, LEGGED_N, 24)
+    worst_g = check_legged_solution(torch, cfg, sol, "b256")
+
+    # The same solve through the kernel's plain version, first 32 scenarios.
+    sub = x0s[:32]
+    err_plain = compare_solves(
+        torch, solve(sub), solve(sub, force_plain_riccati=True), "b256 kernel vs plain")
+    # Scenario 0 starts at the B = 1 lane's cold tick: clamped against NaN
+    # pivots, which a positive-definite Quu_hat never reaches.
+    one = type(sol)(*(
+        type(leaf)(*(v[:1] for v in leaf)) if isinstance(leaf, tuple) else leaf[:1]
+        for leaf in sol))
+    err_b1 = compare_solves(torch, one, cold_b1, "b256 scenario 0 vs B = 1")
+
+    sec = statistics.median(seconds)
+    its = sol.iterations.tolist()
+    rec = {
+        "phase": "legged_tick_b256", "B": batch, "N": LEGGED_N, "nx": 24, "nu": 24,
+        "reduced_nu": 12, "max_iterations": cfg["settings"].max_iterations,
+        "solves_timed": solves, "seconds_per_solve": sec, "solves_per_s": batch / sec,
+        "iterations_histogram": {str(k): its.count(k) for k in sorted(set(its))},
+        "converged_share": float(sol.converged.float().mean()),
+        "riccati_launches": launches, "kernel_dims": list(dims),
+        "worst_abs_foot_constraint": worst_g,
+        "dynamics_violation_sse_max": float(sol.performance.dynamics_violation_sse.max()),
+        "equality_constraints_sse_max": float(sol.performance.equality_constraints_sse.max()),
+        "kernel_vs_plain_solve_max_abs_err": err_plain,
+        "scenario0_vs_b1_max_abs_err": err_b1,
+        "peak_device_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+    }
+    emit(rec)
+    return rec
+
+
+def profile_legged(torch, cfg, batch):
+    """Stage times of one SQP iteration of the legged tick at the cold start
+    (host-clock medians, each stage synchronised), the two QR routes of the
+    projection side by side, and the card's busy share over one whole solve."""
+    from ocs2_tpu_torch.oc.approx import approximate_lq, example_params
+    from ocs2_tpu_torch.oc.metrics import al_dual_ascent, al_merit, evaluate_trajectory
+    from ocs2_tpu_torch.ops import projection, riccati
+    from ocs2_tpu_torch.solvers import sqp
+    from ocs2_tpu_torch.solvers.al import AlState, augment_problem
+
+    timed = lambda fn: timed_stage(torch, fn)  # noqa: E731
+    problem, grid, params, st = cfg["problem"], cfg["grid"], cfg["params"], cfg["settings"]
+    n, nx, nu = LEGGED_N, 24, 24
+    i = torch.arange(batch, dtype=torch.float32, device=DEVICE)[:, None]
+    x0s = cfg["x0"][None] + 1e-3 * torch.sin(i * torch.arange(nx, device=DEVICE)[None, :])
+    xs = x0s[:, None, :].expand(batch, n + 1, nx).contiguous()
+    us = cfg["us_init"].expand(batch, n, nu).contiguous()
+    aug = augment_problem(problem, project_equalities=True)
+    dims = problem.constraint_dims(example_params(params, DEVICE), device=DEVICE)
+    al = AlState.init(dims, n, st.al_rho_init, batch=(batch,), device=DEVICE)
+    p_al = dict(params, al=al)
+
+    stages = {}
+    lq, stages["approximate_lq_ms"] = timed(
+        lambda: approximate_lq(aug, grid, xs, us, p_al, method=st.integrator))
+    coeffs = riccati.LqrCoeffs(
+        A=lq.dynamics.dfdx, B=lq.dynamics.dfdu, b=lq.dynamics.f - xs[:, 1:],
+        Qxx=lq.cost.dfdxx[:, :-1], qx=lq.cost.dfdx[:, :-1],
+        Quu=lq.cost.dfduu[:, :-1] + st.hessian_reg * torch.eye(nu, device=DEVICE),
+        qu=lq.cost.dfdu[:, :-1], Qux=lq.cost.dfdux[:, :-1],
+        Qf=lq.cost.dfdxx[:, -1], qf=lq.cost.dfdx[:, -1])
+    d_t = lq.eq.dfdu.transpose(-1, -2)
+    _, stages["qr_torch_linalg_ms"] = timed(lambda: torch.linalg.qr(d_t, mode="complete"))
+    _, stages["qr_householder_ms"] = timed(lambda: projection.householder_qr(d_t))
+    (reduced, proj), stages["project_lqr_coeffs_ms"] = timed(
+        lambda: projection.project_lqr_coeffs(coeffs, lq.eq.f, lq.eq.dfdx, lq.eq.dfdu))
+    reduced = riccati.LqrCoeffs(*(leaf.contiguous() for leaf in reduced))
+    reg = torch.full((batch,), st.reg_init, device=DEVICE)
+    sol, stages["riccati_backward_ms"] = timed(lambda: riccati.lqr_backward(reduced, reg))
+    (dxs, dvs), stages["lqr_forward_ms"] = timed(
+        lambda: riccati.lqr_forward(reduced, sol, torch.zeros((batch, nx), device=DEVICE)))
+    dus, stages["remap_ms"] = timed(lambda: (
+        projection.remap_projected_input(proj, dxs[:, :-1], dvs),
+        projection.remap_projected_gain(proj, sol.gains))[0])
+    a4 = (st.alpha_decay ** torch.arange(st.num_alphas, device=DEVICE))[None, :, None, None]
+    xs_c, us_c = xs[:, None] + a4 * dxs[:, None], us[:, None] + a4 * dus[:, None]
+    metrics, stages["evaluate_candidates_ms"] = timed(
+        lambda: evaluate_trajectory(problem, grid, xs_c, us_c, params))
+    _, stages["candidate_defects_ms"] = timed(
+        lambda: sqp._defects(problem, grid, xs_c, us_c, params, st.integrator, st.substeps))
+    al_c = AlState(*(a.unsqueeze(1) for a in al))
+    _, stages["al_merit_and_dual_update_ms"] = timed(
+        lambda: (al_merit(metrics, al_c), al_dual_ascent(metrics, al_c)))
+
+    emit({"phase": "profile_stages", "path": f"legged_sqp_b{batch}", "B": batch, "N": n,
+          "stages": stages})
+    x0 = x0s if batch > 1 else cfg["x0"]
+    busy = device_busy(torch, lambda: legged_solve(cfg, x0, cfg["us_init"]))
+    emit({"phase": "profile", "path": f"legged_sqp_b{batch}", "B": batch, "N": n,
+          "profiler": busy})
+
+
+
+def device_busy(torch, fn):
+    """The card's busy share over one call of fn, from torch.profiler: the sum
+    of the kernels' device time over the wall time under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - t0)
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    if dev_us <= 0:
+        raise SystemExit("torch.profiler recorded no device time")
+    return {"device_busy_us": dev_us, "wall_us_under_profiler": wall_us,
+            "device_busy_share": dev_us / wall_us}
+
+
+def timed_stage(torch, fn, reps=3):
+    """fn's result and the host-clock median of its time in ms, each run
+    ending in a synchronise; the first run warms up."""
+    out, secs = None, []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if i:
+            secs.append(time.perf_counter() - t0)
+    return out, 1e3 * statistics.median(secs)
 
 
 def profile_main_path(torch):
@@ -250,16 +533,7 @@ def profile_main_path(torch):
     us0 = torch.zeros((batch, n, ballbot.NU), device="cuda")
     alphas = 0.5 ** torch.arange(8, dtype=torch.float32, device="cuda")
 
-    def timed(fn, reps=3):
-        out, secs = None, []
-        for i in range(reps + 1):  # first run warms up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            if i:
-                secs.append(time.perf_counter() - t0)
-        return out, 1e3 * statistics.median(secs)
+    timed = lambda fn: timed_stage(torch, fn)  # noqa: E731
 
     stages = {}
     (xs, us), stages["initial_rollout_ms"] = timed(
@@ -276,24 +550,9 @@ def profile_main_path(torch):
         lambda: evaluate_trajectory(problem, grid, xs_c, us_c, params))
 
     settings = ddp.DdpSettings(algorithm="ilqr", max_iterations=8)
-    busy = None
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            ddp.solve(problem, grid, x0s, params, settings=settings)
-            torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-        dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
-        if dev_us > 0:
-            busy = {"device_busy_us": dev_us, "wall_us_under_profiler": wall_us,
-                    "device_busy_share": dev_us / wall_us}
-    except Exception as exc:  # the profiler is optional equipment of the machine
-        busy = {"error": repr(exc)}
-    emit({"phase": "profile", "B": batch, "N": n, "stages": stages,
-          "profiler": busy if busy is not None else "not measured"})
+    busy = device_busy(torch, lambda: ddp.solve(problem, grid, x0s, params, settings=settings))
+    emit({"phase": "profile", "path": "ballbot_ilqr_b4096", "B": batch, "N": n,
+          "stages": stages, "profiler": busy})
 
 
 def main() -> int:
@@ -336,26 +595,42 @@ def main() -> int:
         return 0
 
     run = main_path(torch, riccati_cuda)
+    cfg = legged_setup(torch)
+    b1, cold_b1 = legged_tick_b1(torch, riccati_cuda, cfg)
+    b256 = legged_tick_b256(torch, riccati_cuda, cfg, cold_b1)
     if args.profile:
         profile_main_path(torch)
+        profile_legged(torch, cfg, LEGGED_BATCH)
+        profile_legged(torch, cfg, 1)
 
-    at_main = checks[0]
+    at_main, at_legged = checks[0], checks[2]
+    shape_keys = ("nx", "nu", "B", "N", "kernel_ms", "sweep_only_ms", "plain_ms", "bound_ms",
+                  "bound_by", "max_abs_err")
     emit({"kernels": [{
         "name": "riccati_backward", "route": "cuda",
         "source": "ocs2_tpu_torch/csrc/riccati_backward.cu",
         "replaces": "ocs2_tpu/ops/riccati_pallas.py:189",
-        "launches": run["riccati_launches"],
+        "launches": run["riccati_launches"] + b256["riccati_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "shape": dict(zip(("nx", "nu", "B", "N"), MAIN_SHAPE)),
         "ms": at_main["kernel_ms"], "sweep_only_ms": at_main["sweep_only_ms"],
         "plain_ms": at_main["plain_ms"],
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
         "library_ms": None,
-        "other_shapes": [
-            {k: c[k] for k in ("nx", "nu", "B", "N", "kernel_ms", "sweep_only_ms",
-                               "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
-            for c in checks[1:3]
+        # One entry per main path, each driven with the count set to 0 just
+        # before it.  The B = 1 tick takes the single-scenario sweep, as the
+        # reference's un-vmapped solve does, and launches no kernel.
+        "paths": [
+            {"path": "ballbot_ilqr_b4096", "launches": run["riccati_launches"],
+             **{k: at_main[k] for k in shape_keys}},
+            {"path": "legged_sqp_b256", "launches": b256["riccati_launches"],
+             "launches_per_solve": b256["riccati_launches"] / b256["solves_timed"],
+             "share_of_solve": b256["riccati_launches"] / b256["solves_timed"]
+             * 1e-3 * at_legged["kernel_ms"] / b256["seconds_per_solve"],
+             **{k: at_legged[k] for k in shape_keys}},
+            {"path": "legged_sqp_b1", "launches": b1["riccati_launches"]},
         ],
+        "other_shapes": [{k: checks[1][k] for k in shape_keys}],
     }]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

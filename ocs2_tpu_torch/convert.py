@@ -15,9 +15,12 @@ import numpy as np
 import torch
 
 from .core.reference import TargetTrajectories
+from .core.types import PerformanceIndex
 from .oc.time_discretization import TimeGrid
+from .ops.projection import Projection
 from .ops.riccati import LqrCoeffs, LqrSolution
 from .solvers.al import AlState
+from .solvers.sqp import IterationLog, SqpSolution
 
 
 def _field(rec: Any, name: str):
@@ -38,6 +41,29 @@ def lqr_coeffs_from_numpy(rec: Any, device="cuda") -> LqrCoeffs:
 
 def lqr_solution_from_numpy(rec: Any, device="cuda") -> LqrSolution:
     return _record(LqrSolution, rec, device)
+
+
+def projection_from_numpy(rec: Any, device="cuda") -> Projection:
+    return _record(Projection, rec, device)
+
+
+def sqp_solution_from_numpy(rec: Any, device="cuda") -> SqpSolution:
+    """An ``SqpSolution`` of the JAX package (one scenario, or a vmapped
+    batch) as the port's record; ``iterations`` stays int32 and
+    ``converged`` bool."""
+    nested = {"performance": PerformanceIndex, "al": AlState, "history": IterationLog}
+    out = {}
+    for name in SqpSolution._fields:
+        val = _field(rec, name)
+        if name in nested:
+            out[name] = _record(nested[name], val, device)
+        elif name == "iterations":
+            out[name] = torch.as_tensor(np.array(val, dtype=np.int32), device=device)
+        elif name == "converged":
+            out[name] = torch.as_tensor(np.array(val, dtype=bool), device=device)
+        else:
+            out[name] = _f32(val, device)
+    return SqpSolution(**out)
 
 
 def target_trajectories_from_numpy(rec: Any, device="cuda") -> TargetTrajectories:

@@ -92,8 +92,8 @@ class TargetTrajectories(NamedTuple):
 
     @staticmethod
     def constant(state, input, t0: float = 0.0, device="cuda"):
-        state = torch.as_tensor(np.asarray(state, np.float32), device=device)
-        input = torch.as_tensor(np.asarray(input, np.float32), device=device)
+        state = torch.as_tensor(state, dtype=torch.float32, device=device)
+        input = torch.as_tensor(input, dtype=torch.float32, device=device)
         return TargetTrajectories(
             times=torch.tensor([t0], dtype=torch.float32, device=device),
             states=state[None, :],

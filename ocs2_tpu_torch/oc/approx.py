@@ -200,6 +200,17 @@ def node_params(params: Any, grid: TimeGrid, k):
     return params
 
 
+def example_params(params: Any, device="cuda"):
+    """Params with a mode and a node index of node 0 injected, for probing
+    constraint dimensions (shapes only)."""
+    if isinstance(params, dict):
+        p = dict(params)
+        p["mode"] = torch.zeros((), dtype=torch.int64, device=device)
+        p["node"] = torch.zeros((), dtype=torch.int64, device=device)
+        return p
+    return params
+
+
 def _vector_fields(prefix, v: VectorLinearApproximation, out: dict):
     out[prefix + "_f"] = v.f
     out[prefix + "_dfdx"] = v.dfdx

@@ -301,3 +301,79 @@ class GaussNewtonCost:
             dfdux=hess[nx:, :nx],
             dfduu=hess[nx:, nx:],
         )
+
+
+class ResidualGaussNewtonCost:
+    """Weighted-residual cost  0.5 ||sqrt(w) * r(t,x,u,p)||^2  with the
+    Gauss-Newton quadratization  grad = J'(w*r),  Hess = J' diag(w) J
+    (residual curvature dropped)."""
+
+    psd_quadratization = True  # J' diag(w) J with w >= 0
+
+    def __init__(self, residual_fn, weights, with_input: bool = True, device="cuda"):
+        self.residual_fn = residual_fn
+        self.weights = _weights(weights, device)
+        self.with_input = with_input
+
+    def __call__(self, *args):
+        r = _as_rows(self.residual_fn(*args), args[1])
+        return 0.5 * torch.sum(self.weights * r * r, dim=-1)
+
+    def quad_approx(self, *args):
+        p = args[-1]
+        if self.with_input:
+            t, x, u, _ = args
+            nx = x.shape[0]
+            z = torch.cat([x, u])
+            rz = lambda zz: torch.atleast_1d(  # noqa: E731
+                self.residual_fn(t, zz[:nx], zz[nx:], p)
+            )
+        else:
+            t, x, _ = args
+            z = x
+            rz = lambda zz: torch.atleast_1d(self.residual_fn(t, zz, p))  # noqa: E731
+        r = rz(z)
+        jac = torch.func.jacrev(rz)(z)  # [nr, nz]
+        grad = jac.T @ (self.weights * r)
+        hess = (jac * self.weights[:, None]).T @ jac
+        f = 0.5 * torch.sum(self.weights * r * r)
+        if not self.with_input:
+            return ScalarQuadraticApproximation(
+                f=f, dfdx=grad, dfdu=None, dfdxx=hess, dfdux=None, dfduu=None
+            )
+        nx = args[1].shape[0]
+        return ScalarQuadraticApproximation(
+            f=f,
+            dfdx=grad[:nx],
+            dfdu=grad[nx:],
+            dfdxx=hess[:nx, :nx],
+            dfdux=hess[nx:, :nx],
+            dfduu=hess[nx:, nx:],
+        )
+
+
+# --------------------------------------------------------------------------
+# Common term constructors.
+# --------------------------------------------------------------------------
+
+
+def soft_constraint(constraint_fn: ConstraintFn, penalty, with_input: bool = True):
+    """Fold an inequality constraint h >= 0 into a cost term via a penalty
+    (``core/penalties``).  Returns a structured Gauss-Newton term."""
+    return GaussNewtonCost(
+        constraint_fn, lambda h, p: penalty(h), with_input=with_input
+    )
+
+
+def soft_box_input_constraint(lower, upper, penalty, device="cuda"):
+    """Soft input box bounds lower <= u <= upper."""
+    lower = _weights(lower, device)
+    upper = _weights(upper, device)
+
+    def cost(t, x, u, p):
+        del t, x, p
+        return torch.sum(penalty(u - lower).value, dim=-1) + torch.sum(
+            penalty(upper - u).value, dim=-1
+        )
+
+    return cost

@@ -1,8 +1,8 @@
 """Time-varying LQR via the discrete Riccati recursion.
 
-Counterpart of ``ocs2_tpu/ops/riccati.py`` (sequential paths and the forward
-pass; the Hessian correction ``convexify`` and the associative-scan
-``lqr_backward_parallel`` are not ported yet).
+Counterpart of ``ocs2_tpu/ops/riccati.py`` (sequential paths, the forward
+pass and the Hessian correction ``convexify``; the associative-scan
+``lqr_backward_parallel`` is not ported yet).
 
 Problem (increments around the nominal trajectory):
     min  sum_k [ q_k + qx_k'dx + qu_k'du + 1/2 dx'Qxx dx + du'Qux dx
@@ -18,8 +18,11 @@ Three backward passes share one recursion:
 * ``_lqr_backward_batched`` — a batch of scenarios in batch-minor entry form
   with clamped Cholesky pivots.  This is the plain PyTorch version of the
   CUDA kernel in ``ops/riccati_cuda.py``.
-* ``lqr_backward`` — the solvers' entry point for a batch: the CUDA kernel
-  for tensors on the card, the plain version for tensors on the CPU.
+* ``lqr_backward`` — the solvers' entry point, which takes the place of the
+  reference's ``custom_vmap`` rule: a batch of one goes through the
+  single-scenario sweep (as the reference's un-vmapped solve does), a larger
+  batch through the CUDA kernel for tensors on the card and through the
+  plain version for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -69,6 +72,51 @@ def _solve_psd(M: Tensor, rhs: Tensor) -> Tensor:
     z = torch.cholesky_solve(rhs[:, None] if vec else rhs, chol)
     z = torch.where(info != 0, torch.full_like(z, float("nan")), z)
     return z[:, 0] if vec else z
+
+
+def convexify_stage_hessians(
+    Qxx: Tensor, Qux: Tensor, Quu: Tensor, Qf: Tensor,
+    min_eig: float = 1e-5, method: str = "gershgorin",
+):
+    """PSD-project the stage Hessians [[Qxx, Qux'], [Qux, Quu]] [..., N, ...]
+    and the terminal Qf [..., nx, nx].  ``method`` "gershgorin" shifts the
+    diagonal by the Gershgorin lower bound of the spectrum, "eigh" clamps the
+    eigenvalues."""
+    nx = Qxx.shape[-1]
+
+    def correct(z):
+        z = symmetrize(z)
+        if method == "gershgorin":
+            diag = torch.diagonal(z, dim1=-2, dim2=-1)
+            radius = torch.sum(torch.abs(z), dim=-1) - torch.abs(diag)
+            lb = torch.amin(diag - radius, dim=-1)
+            shift = torch.clamp(min_eig - lb, min=0.0)
+            eye = torch.eye(z.shape[-1], dtype=z.dtype, device=z.device)
+            return z + shift[..., None, None] * eye
+        w, v = torch.linalg.eigh(z)
+        return (v * torch.clamp(w, min=min_eig).unsqueeze(-2)) @ v.transpose(-1, -2)
+
+    z = correct(torch.cat([
+        torch.cat([Qxx, Qux.transpose(-1, -2)], dim=-1),
+        torch.cat([Qux, Quu], dim=-1),
+    ], dim=-2))
+    return z[..., :nx, :nx], z[..., nx:, :nx], z[..., nx:, nx:], correct(Qf)
+
+
+def convexify(
+    coeffs: LqrCoeffs, min_eig: float = 1e-5, method: str = "gershgorin"
+) -> LqrCoeffs:
+    """Make every stage's joint Hessian (and the terminal Qf) positive
+    semidefinite: exact Hessians of nonconvex terms can be indefinite, which
+    breaks the Riccati Cholesky.  Any leading dims."""
+    if method not in ("gershgorin", "eigh"):
+        raise ValueError(f"unknown Hessian correction {method!r}")
+    qxx, qux, quu, qf = convexify_stage_hessians(
+        coeffs.Qxx, coeffs.Qux, coeffs.Quu, coeffs.Qf, min_eig, method
+    )
+    return coeffs._replace(
+        Qxx=qxx.contiguous(), Qux=qux.contiguous(), Quu=quu.contiguous(), Qf=qf
+    )
 
 
 def _lqr_backward_single(coeffs: LqrCoeffs, reg) -> LqrSolution:
@@ -256,11 +304,22 @@ def lqr_backward(coeffs: LqrCoeffs, reg, force_plain: bool = False) -> LqrSoluti
     """Riccati backward pass of a batch: coeffs leaves [B, N, ...], reg [B]
     (or scalar); fields of the result have a leading [B].
 
-    Tensors on the card go through the CUDA kernel (``riccati_cuda``), which
-    raises on anything it cannot take; tensors on the CPU go through the
-    plain version.  ``force_plain`` is a test hook: it runs the plain version
-    on the card so that a whole solve can be held against the kernel's."""
-    if coeffs.A.is_cuda and not force_plain:
+    A batch of one takes the single-scenario sweep, on either device: NaN
+    from the node whose ``Quu_hat`` is not positive definite, which the SQP
+    solver's step masking relies on.  A larger batch on the card goes through
+    the CUDA kernel (``riccati_cuda``), which raises on anything it cannot
+    take, and on the CPU through the plain version; both clamp the pivots.
+    ``force_plain`` is a test hook: it runs the plain version whatever the
+    batch and the device, so that a whole solve can be held against the
+    kernel's."""
+    batch = coeffs.A.shape[0]
+    if force_plain:
+        return _lqr_backward_batched(coeffs, reg)
+    if batch == 1:
+        reg0 = torch.as_tensor(reg, dtype=coeffs.A.dtype, device=coeffs.A.device).reshape(())
+        sol = _lqr_backward_single(LqrCoeffs(*(leaf[0] for leaf in coeffs)), reg0)
+        return LqrSolution(*(leaf.unsqueeze(0) for leaf in sol))
+    if coeffs.A.is_cuda:
         from .riccati_cuda import lqr_backward_cuda
 
         return lqr_backward_cuda(coeffs, reg)

@@ -28,8 +28,10 @@ SOURCE = "riccati_backward.cu"
 # one scenario's matrices in shared memory).
 MAX_DIM = 32
 
-# Number of kernel launches made by lqr_backward_cuda (and by nothing else).
+# Number of kernel launches made by launch_batch_minor (and by nothing else),
+# and the (B, N, nx, nu) of the latest one.
 launch_count = 0
+last_launch_dims = None
 
 _FIELD_NDIM = {
     "A": 4, "B": 4, "b": 3, "Qxx": 4, "qx": 3, "Quu": 4, "qu": 3, "Qux": 4,
@@ -126,7 +128,7 @@ def launch_batch_minor(operands, batch: int, n: int, nx: int, nu: int):
     """Launch the kernel on batch-minor operands (see to_batch_minor);
     returns the batch-minor results (gains [N, nu, nx, B], kff [N, nu, B],
     value_S [N+1, nx, nx, B], value_s [N+1, nx, B], dv1 [B], dv2 [B])."""
-    global launch_count
+    global launch_count, last_launch_dims
     dev = operands[0].device
     lib = _library(nx, nu)
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
@@ -145,6 +147,7 @@ def launch_batch_minor(operands, batch: int, n: int, nx: int, nu: int):
             f"(B={batch}, N={n}, nx={nx}, nu={nu})"
         )
     launch_count += 1
+    last_launch_dims = (batch, n, nx, nu)
     return results
 
 

@@ -17,9 +17,8 @@ the CUDA kernel on the card), a line search that rolls out the whole
 step-size grid of every scenario at once, Levenberg-Marquardt regularization
 in the carry, and the augmented-Lagrangian outer loop of ``solvers/al.py``.
 
-Ported: ``algorithm="ilqr"``.  The continuous-time SLQ backward pass, the
-associative-scan Riccati and the Hessian correction raise
-``NotImplementedError``.
+Ported: ``algorithm="ilqr"``.  The continuous-time SLQ backward pass and the
+associative-scan Riccati raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,12 +29,12 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from ..core.types import PerformanceIndex
-from ..oc.approx import approximate_lq
+from ..oc.approx import approximate_lq, example_params
 from ..oc.metrics import TrajectoryMetrics, al_dual_ascent, al_merit, evaluate_trajectory
 from ..oc.problem import OptimalControlProblem
 from ..oc.rollout import ddp_search_policy, open_loop_policy, rollout
 from ..oc.time_discretization import TimeGrid
-from ..ops.riccati import LqrCoeffs, LqrSolution, lqr_backward
+from ..ops.riccati import LqrCoeffs, LqrSolution, convexify, lqr_backward
 from .al import AlState, augment_problem
 
 Tensor = torch.Tensor
@@ -194,13 +193,7 @@ def solve(
         if settings.convexify == "auto"
         else bool(settings.convexify)
     )
-    if do_convexify:
-        raise NotImplementedError(
-            "convexify: the Hessian correction (ops/riccati.convexify) "
-            "belongs to the next slice of the port; this problem has cost "
-            "terms that are not PSD by construction"
-        )
-    dims = problem.constraint_dims(_example_params(params, dev), device=dev)
+    dims = problem.constraint_dims(example_params(params, dev), device=dev)
     if al_init is None:
         al_init = AlState.init(
             dims, n, settings.al_rho_init, batch=(batch,), dtype=f32, device=dev
@@ -233,7 +226,10 @@ def solve(
             aug, grid, xs, us, p_al,
             method=settings.integrator, substeps=settings._substeps,
         )
-        return lqr_backward(_lq_to_coeffs(lq), reg, force_plain=force_plain_riccati)
+        coeffs = _lq_to_coeffs(lq)
+        if do_convexify:
+            coeffs = convexify(coeffs, method=settings.hessian_correction)
+        return lqr_backward(coeffs, reg, force_plain=force_plain_riccati)
 
     def iteration(c: _Carry):
         p_al = dict(params, al=c.al)
@@ -380,12 +376,3 @@ def solve(
         history=history,
     )
 
-
-def _example_params(params, device="cuda"):
-    """Params example for constraint-dim probing (shapes only)."""
-    if isinstance(params, dict):
-        p = dict(params)
-        p["mode"] = torch.zeros((), dtype=torch.int64, device=device)
-        p["node"] = torch.zeros((), dtype=torch.int64, device=device)
-        return p
-    return params

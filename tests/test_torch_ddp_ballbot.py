@@ -147,9 +147,23 @@ def test_shared_us_init_broadcasts():
     np.testing.assert_array_equal(a.xs.numpy(), b.xs.numpy())
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"algorithm": "slq"}, {"parallel_riccati": True}, {"convexify": True},
-])
+def test_hessian_correction_leaves_a_psd_problem_where_it_was():
+    """Ballbot's cost terms are PSD by construction, so "auto" skips the
+    correction; forcing it clamps eigenvalues that are already above the
+    floor and moves the solve at rounding level only."""
+    x0s = _x0s(2, seed=7)
+    solve = lambda **kw: ddp.solve(  # noqa: E731
+        ballbot.make_problem(device="cpu"), uniform_grid(0.0, 1.0, 6), x0s,
+        ballbot.make_params(device="cpu"),
+        settings=ddp.DdpSettings(max_iterations=3, **kw), device="cpu")
+    auto = solve()
+    for method in ("eigh", "gershgorin"):
+        forced = solve(convexify=True, hessian_correction=method)
+        np.testing.assert_array_equal(forced.iterations.numpy(), auto.iterations.numpy())
+        np.testing.assert_allclose(forced.us.numpy(), auto.us.numpy(), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kwargs", [{"algorithm": "slq"}, {"parallel_riccati": True}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="slice"):
         ddp.solve(

@@ -216,3 +216,90 @@ def test_library_name_depends_on_pair_and_source():
     b = _build.library_path(riccati_cuda.SOURCE, riccati_cuda._defines(12, 4))
     assert a != b and a.parent == _build.BUILD_DIR
     assert "nx10" in a.name and "nu3" in a.name and a.suffix == ".so"
+
+
+def test_lqr_backward_takes_the_single_scenario_route_for_a_batch_of_one():
+    """B = 1 is the un-vmapped solve of the reference: no pivot clamp, NaN
+    from the node whose Quu_hat is not positive definite, placed as in JAX;
+    the plain version on the same data clamps and stays finite there."""
+    leaves = lq_numpy(1, 8, 4, 2, seed=5)
+    leaves["Quu"][0, 5] = -100.0 * np.eye(2, dtype=np.float32)
+    jc, _ = _single(leaves, 0)
+    _, tc = both(leaves)
+    before = riccati_cuda.launch_count
+    mine = riccati.lqr_backward(tc, torch.zeros(1))
+    assert riccati_cuda.launch_count == before
+    ref = jriccati.lqr_backward(jc, 0.0)
+    for f in FIELDS:
+        a, b = getattr(mine, f).numpy(), np.asarray(getattr(ref, f))
+        assert a.shape == (1,) + b.shape, f
+        np.testing.assert_array_equal(np.isnan(a[0]), np.isnan(b), err_msg=f)
+        np.testing.assert_allclose(a[0], b, rtol=RTOL, atol=ATOL, err_msg=f)
+    assert np.isnan(mine.gains[0, :6].numpy()).all() and np.isfinite(mine.gains[0, 6:].numpy()).all()
+    clamped = riccati.lqr_backward(tc, torch.zeros(1), force_plain=True)
+    assert np.isfinite(clamped.gains[0, 5].numpy()).all()
+
+
+@pytest.mark.parametrize("reg", [1e-6, torch.full((1,), 0.3)])
+def test_batch_of_one_matches_jax_single(reg):
+    leaves = lq_numpy(1, 10, 6, 3, seed=4)
+    jc, _ = _single(leaves, 0)
+    _, tc = both(leaves)
+    mine = riccati.lqr_backward(tc, reg)
+    ref = jax.jit(jriccati.lqr_backward)(jc, jnp.asarray(float(np.asarray(reg).reshape(-1)[0])))
+    for f in FIELDS:
+        np.testing.assert_allclose(
+            getattr(mine, f).numpy()[0], np.asarray(getattr(ref, f)), rtol=RTOL, atol=ATOL,
+            err_msg=f)
+
+
+def _indefinite_lq(seed):
+    """LQ data whose joint stage Hessians and Qf are indefinite."""
+    leaves = lq_numpy(3, 5, 4, 2, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    for k in ("Qxx", "Quu", "Qf"):
+        w = rng.standard_normal(leaves[k].shape).astype(np.float32)
+        leaves[k] = leaves[k] - 0.8 * (w + np.swapaxes(w, -1, -2))
+    leaves["Qux"] = 3.0 * leaves["Qux"]
+    return leaves
+
+
+@pytest.mark.parametrize("method", ["eigh", "gershgorin"])
+@pytest.mark.parametrize("field", ["Qxx", "Qux", "Quu", "Qf"])
+def test_convexify_matches_jax(method, field):
+    leaves = _indefinite_lq(seed=31)
+    jc, tc = both(leaves)
+    ref = jax.vmap(lambda c: jriccati.convexify(c, 1e-3, method=method))(jc)
+    mine = riccati.convexify(tc, 1e-3, method=method)
+    # eigh: eigenvector bases differ between LAPACK builds, the clamped
+    # reconstruction agrees to float32 accuracy of the Hessian's scale.
+    np.testing.assert_allclose(
+        getattr(mine, field).numpy(), np.asarray(getattr(ref, field)), rtol=RTOL, atol=1e-4)
+    for name in set(riccati.LqrCoeffs._fields) - {"Qxx", "Qux", "Quu", "Qf"}:
+        assert getattr(mine, name) is getattr(tc, name)
+
+
+@pytest.mark.parametrize("method", ["eigh", "gershgorin"])
+def test_convexify_makes_the_joint_hessians_psd(method):
+    leaves = _indefinite_lq(seed=33)
+    _, tc = both(leaves)
+    joint = lambda c: np.block(  # noqa: E731
+        [[c.Qxx.numpy(), np.swapaxes(c.Qux.numpy(), -1, -2)], [c.Qux.numpy(), c.Quu.numpy()]])
+    assert np.linalg.eigvalsh(joint(tc)).min() < -0.1
+    out = riccati.convexify(tc, 1e-3, method=method)
+    assert np.linalg.eigvalsh(joint(out)).min() > 1e-3 - 1e-4
+    assert np.linalg.eigvalsh(out.Qf.numpy()).min() > 1e-3 - 1e-4
+    assert out.Quu.is_contiguous() and out.Qxx.is_contiguous() and out.Qux.is_contiguous()
+
+
+def test_convexify_leaves_a_dominant_diagonal_untouched_and_refuses_unknown_methods():
+    leaves = lq_numpy(2, 3, 4, 2, seed=35)
+    for k, n in (("Qxx", 4), ("Quu", 2), ("Qf", 4)):
+        leaves[k] = np.broadcast_to(5.0 * np.eye(n, dtype=np.float32), leaves[k].shape).copy()
+    leaves["Qux"] = 0.01 * leaves["Qux"]
+    _, tc = both(leaves)
+    out = riccati.convexify(tc, 1e-5, method="gershgorin")
+    np.testing.assert_allclose(out.Qxx.numpy(), tc.Qxx.numpy(), atol=1e-7)
+    np.testing.assert_allclose(out.Quu.numpy(), tc.Quu.numpy(), atol=1e-7)
+    with pytest.raises(ValueError, match="Hessian correction"):
+        riccati.convexify(tc, method="cholesky")

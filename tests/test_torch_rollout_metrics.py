@@ -17,7 +17,7 @@ from ocs2_tpu.solvers import ddp as jddp
 
 from ocs2_tpu_torch import convert
 from ocs2_tpu_torch.models import ballbot
-from ocs2_tpu_torch.oc import metrics, rollout
+from ocs2_tpu_torch.oc import approx, metrics, rollout
 from ocs2_tpu_torch.oc.time_discretization import uniform_grid
 from ocs2_tpu_torch.solvers import al, ddp
 
@@ -149,14 +149,14 @@ def test_merit_broadcasts_multipliers_over_candidates(toy_metrics):
 
 def test_ballbot_has_no_constraints_and_al_state_is_empty():
     tp, tpar = ballbot.make_problem(device="cpu"), ballbot.make_params(device="cpu")
-    dims = tp.constraint_dims(ddp._example_params(tpar, "cpu"), device="cpu")
+    dims = tp.constraint_dims(approx.example_params(tpar, "cpu"), device="cpu")
     jdims = jballbot.make_problem().constraint_dims(jddp._example_params(jballbot.make_params()))
     assert dims == jdims == {"ne": 0, "nse": 0, "ni": 0, "nsi": 0, "nfe": 0}
     state = al.AlState.init(dims, 5, rho=3.0, batch=(2,), device="cpu")
     assert state.lmbd_eq.shape == (2, 5, 0) and state.rho.tolist() == [3.0, 3.0]
     assert al.augment_problem(tp).cost_terms == tp.cost_terms and tp.cost_structure_psd
     toy_dims = toy.torch_problem().constraint_dims(
-        ddp._example_params(toy.torch_params(), "cpu"), device="cpu")
+        approx.example_params(toy.torch_params(), "cpu"), device="cpu")
     assert toy_dims == toy.jax_problem().constraint_dims(
         jddp._example_params(toy.jax_params())) == {"ne": 1, "nse": 0, "ni": 1, "nsi": 1, "nfe": 1}
     assert not toy.torch_problem().cost_structure_psd
