@@ -12,8 +12,8 @@ main paths and checks that they went through the kernels:
 * ``sqp.solve`` on the legged-robot problem (SRBD, nx = nu = 24, 100 intervals
   over 1 s, rk2, trot, soft friction cone, projected 12-row foot constraint,
   10 iterations at most): the control-rate tick at B = 1 as chains of
-  receding-horizon ticks, and a batch of 256 scenarios, whose backward sweep is
-  the CUDA kernel at (nx, nu) = (24, 12).
+  receding-horizon ticks, and a batch of 256 scenarios; the backward sweep of
+  both is the CUDA kernel at (nx, nu) = (24, 12), with strict pivots at B = 1.
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when there
@@ -21,7 +21,8 @@ is no CUDA device or when any phase fails.  Imports neither JAX nor the JAX
 package.
 
 Peak rates used for the bounds: 3.35 TB/s of device memory and 67 TFLOP/s of
-float32 outside the tensor cores (NVIDIA H100 SXM data sheet).
+float32 outside the tensor cores (NVIDIA H100 SXM data sheet); the latencies
+of the dependent chain are stated at ``riccati_bound``.
 """
 from __future__ import annotations
 
@@ -36,6 +37,9 @@ import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# For the floor set by the chain of dependent nodes (see riccati_bound).
+BOOST_CLOCK_HZ = 1.98e9
+FMA_CYCLES, SPECIAL_CYCLES, EXCHANGE_CYCLES = 4, 18, 23
 RTOL, ATOL = 2e-4, 1e-5  # float32 reassociation: the k-accumulation order differs
 
 # (nx, nu, B, N): the three production shapes of the Riccati sweep (ballbot
@@ -45,6 +49,9 @@ KERNEL_SHAPES = [(10, 3, 4096, 32), (12, 4, 4096, 40), (24, 12, 256, 100), (10, 
                  (3, 5, 77, 6)]
 MAIN_SHAPE = KERNEL_SHAPES[0]
 LEGGED_SHAPE = KERNEL_SHAPES[2]
+# The control-rate tick: one scenario, strict pivots (NaN, not a clamp, on a
+# Quu_hat that is not positive definite).
+STRICT_SHAPE = (24, 12, 1, 100)
 DEVICE = "cuda"  # every phase runs on the card; main() refuses to start without one
 # Whole solves: the kernel's route against its plain version's.
 SOLVE_ATOL, SOLVE_RTOL = 1e-3, 1e-4
@@ -89,8 +96,22 @@ def random_lq(torch, riccati, nx, nu, batch, n, seed):
 
 
 def riccati_bound(nx, nu, batch, n):
-    """Least time for the sweep: each input read once, each output written
-    once, over the memory rate; its operations over the float32 rate."""
+    """Least time for the sweep, the largest of three floors.
+
+    * bytes: each input read once, each output written once, over the memory
+      rate;
+    * flops: its operations over the float32 rate;
+    * chain: node k needs S of node k + 1, so the N nodes follow one another
+      whatever the batch, and inside a node so do: the two dot products of
+      length nx that feed Quu_hat (S B, then B' (S B)), nu pivot steps (a
+      reciprocal or square root, a multiply-add, and the pivot row handed to
+      the other threads), two triangular solves of depth nu, and the two dot
+      products of length nu of the S update (Quu_hat K, then K' (Quu_hat K)).
+      Assumed: a dot product of length m is a multiply and a tree of
+      ceil(log2 m) adds; a dependent multiply-add takes 4 cycles, a
+      special-function operation 18, a hand-over between threads (shared
+      memory or shuffle round trip) 23, at the 1.98 GHz boost clock.  These
+      are the least the card's pipelines allow, not what a kernel reaches."""
     floats_in = batch * n * (2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu)
     floats_in += batch * (nx * nx + nx + 1)
     floats_out = batch * n * (nx * nu + nu) + batch * (n + 1) * (nx * nx + nx) + 2 * batch
@@ -106,11 +127,25 @@ def riccati_bound(nx, nu, batch, n):
         + 2 * nx * nx + 4 * nu                 # symmetrize, dv1, dv2
     )
     flops = batch * n * per_node
-    t_bytes, t_flops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    dot = lambda m: FMA_CYCLES * (1 + (m - 1).bit_length())  # noqa: E731
+    chain_cycles = n * (
+        2 * dot(nx) + EXCHANGE_CYCLES
+        + nu * (SPECIAL_CYCLES + FMA_CYCLES + EXCHANGE_CYCLES)
+        + 2 * nu * FMA_CYCLES
+        + 2 * dot(nu) + EXCHANGE_CYCLES
+    )
+    terms = {
+        "bytes": nbytes / PEAK_BYTES_PER_S, "flops": flops / PEAK_F32_FLOPS,
+        "chain": chain_cycles / BOOST_CLOCK_HZ,
+    }
+    term = max(terms, key=terms.get)
     return {
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": 1e3 * max(t_bytes, t_flops),
-        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "bytes": nbytes, "flops": flops, "chain_cycles": chain_cycles,
+        "bytes_ms": 1e3 * terms["bytes"], "flops_ms": 1e3 * terms["flops"],
+        "chain_ms": 1e3 * terms["chain"],
+        "bound_ms": 1e3 * terms[term],
+        # The chain is a floor of operations (their latency, not their rate).
+        "bound_by": "bytes" if term == "bytes" else "operations", "bound_term": term,
     }
 
 
@@ -130,46 +165,97 @@ def time_ms(torch, fn, reps, warmup):
     return statistics.median(times)
 
 
-def check_kernel(torch, riccati, riccati_cuda, shape, seed, timed):
-    nx, nu, batch, n = shape
-    coeffs, reg = random_lq(torch, riccati, nx, nu, batch, n, seed)
-    out = riccati.lqr_backward(coeffs, reg)
-    torch.cuda.synchronize()
-    ref = riccati.lqr_backward(coeffs, reg, force_plain=True)
-    torch.cuda.synchronize()
+def compare_fields(torch, out, ref, nan_equal=False):
+    """(largest absolute difference, names of the fields that disagree): equal
+    shapes, contiguous results, every entry within ATOL + RTOL |ref|.  With
+    nan_equal the NaN entries must be the same ones, element for element, and
+    the others are compared; without it every entry must be finite."""
     max_err, bad = 0.0, []
     for f in ref._fields:
         a, b = getattr(out, f), getattr(ref, f)
-        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+        if a.shape != b.shape or not a.is_contiguous():
             bad.append(f)
             continue
-        err = (a - b).abs()
-        max_err = max(max_err, float(err.max()))
-        if not bool((err <= ATOL + RTOL * b.abs()).all()):
+        nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+        if not (bool(torch.equal(nan_a, nan_b)) if nan_equal else not bool(nan_a.any())):
             bad.append(f)
+            continue
+        keep = ~nan_b
+        err = (a - b).abs()[keep]
+        if err.numel():
+            max_err = max(max_err, float(err.max()))
+        if not bool(torch.isfinite(a[keep]).all()) or not bool(
+                (err <= ATOL + RTOL * b.abs()[keep]).all()):
+            bad.append(f)
+    return max_err, bad
+
+
+def check_kernel(torch, riccati, riccati_cuda, shape, seed, timed):
+    """The kernel, through the entry point the solvers call, against its plain
+    version on the same data: clamped pivots for a batch, strict ones (also
+    against the single-scenario sweep) for a batch of one."""
+    nx, nu, batch, n = shape
+    strict = batch == 1
+    coeffs, reg = random_lq(torch, riccati, nx, nu, batch, n, seed)
+    before = riccati_cuda.launch_count
+    out = riccati.lqr_backward(coeffs, reg)
+    torch.cuda.synchronize()
+    assert riccati_cuda.launch_count == before + 1
+    geometry = riccati_cuda.launch_geometry(nx, nu, batch)
+    plain = lambda: riccati._lqr_backward_batched(coeffs, reg, strict=strict)  # noqa: E731
+    max_err, bad = compare_fields(torch, out, plain())
     rec = {
-        "phase": "kernel_check", "kernel": "riccati_backward",
-        "nx": nx, "nu": nu, "B": batch, "N": n,
-        "max_abs_err": max_err, "rtol": RTOL, "atol": ATOL, "ok": not bad,
+        "phase": "kernel_check", "kernel": "riccati_backward", "pivots":
+        "strict" if strict else "clamp", "nx": nx, "nu": nu, "B": batch, "N": n,
+        "blocks": geometry.blocks, "threads": geometry.threads,
+        "shared_bytes": geometry.shared_bytes,
     }
+    if strict:
+        single = lambda: riccati.lqr_backward(coeffs, reg, force_single=True)  # noqa: E731
+        err_single, bad_single = compare_fields(torch, out, single())
+        max_err, bad = max(max_err, err_single), bad + [f"single:{f}" for f in bad_single]
+    rec.update({"max_abs_err": max_err, "rtol": RTOL, "atol": ATOL, "ok": not bad})
     if timed:
         rec.update(riccati_bound(nx, nu, batch, n))
         rec["kernel_ms"] = time_ms(
             torch, lambda: riccati.lqr_backward(coeffs, reg), reps=20, warmup=3)
-        # The launch alone, on operands already in the kernel's layout: the
-        # rest of kernel_ms is the wrapper's ten layout copies.
-        ops = riccati_cuda.to_batch_minor(coeffs, reg, batch)
-        rec["sweep_only_ms"] = time_ms(
-            torch, lambda: riccati_cuda.launch_batch_minor(ops, batch, n, nx, nu),
-            reps=20, warmup=3)
         # The plain version is a Python loop of small launches; 3 runs do.
-        rec["plain_ms"] = time_ms(
-            torch, lambda: riccati.lqr_backward(coeffs, reg, force_plain=True),
-            reps=3, warmup=1)
+        rec["plain_ms"] = time_ms(torch, plain, reps=3, warmup=1)
+        if strict:
+            rec["single_sweep_ms"] = time_ms(torch, single, reps=3, warmup=1)
     emit(rec)
     if bad:
         raise SystemExit(f"riccati_backward disagrees with its plain version at {shape}: {bad}")
     return rec
+
+
+def check_strict_nan(torch, riccati, shape, seed, node):
+    """Strict pivots on a Quu that is not positive definite at one node: the
+    kernel's NaN entries must be those of its plain version and of the
+    single-scenario sweep, element for element (that node and every earlier
+    one, dv1, dv2), and the finite entries agree."""
+    nx, nu, batch, n = shape
+    coeffs, reg = random_lq(torch, riccati, nx, nu, batch, n, seed)
+    coeffs.Quu[:, node] = -100.0 * torch.eye(nu, device=DEVICE)
+    out = riccati.lqr_backward(coeffs, reg)
+    torch.cuda.synchronize()
+    refs = {
+        "plain": riccati._lqr_backward_batched(coeffs, reg, strict=True),
+        "single": riccati.lqr_backward(coeffs, reg, force_single=True),
+    }
+    max_err, bad = 0.0, []
+    for name, ref in refs.items():
+        err, bad_fields = compare_fields(torch, out, ref, nan_equal=True)
+        max_err, bad = max(max_err, err), bad + [f"{name}:{f}" for f in bad_fields]
+    nan_nodes = int(torch.isnan(out.gains).all(dim=(2, 3)).sum())
+    if nan_nodes != node + 1 or not bool(torch.isnan(out.dv1).all()) or not bool(
+            torch.isfinite(out.gains[:, node + 1:]).all()):
+        bad.append("placement")
+    emit({"phase": "kernel_check", "kernel": "riccati_backward", "pivots": "strict",
+          "fixture": f"Quu = -100 I at node {node}", "nx": nx, "nu": nu, "B": batch, "N": n,
+          "nan_nodes": nan_nodes, "max_abs_err_of_finite": max_err, "ok": not bad})
+    if bad:
+        raise SystemExit(f"strict pivots: NaN placement differs at {shape}: {bad}")
 
 
 def main_path(torch, riccati_cuda):
@@ -216,12 +302,25 @@ def main_path(torch, riccati_cuda):
     merit_drop = float((sol.performance.merit / merit0).mean())
 
     # The same solve with the kernel's plain version, first 256 scenarios.
+    # A scenario whose two routes stop at the same merit to float32 rounding
+    # but after different numbers of iterations is a tie: at that floor no
+    # candidate can fall by the Armijo margin, so whether the last accepted
+    # step already sat on it is decided by the last bit (one route then runs
+    # to the budget without moving).  Ties are counted and held to 2 % of the
+    # scenarios, to equal merits and to the tolerance in xs; every other
+    # scenario must agree in iterations, xs and us.
     sub = x0s[:256]
     k_sol, p_sol = solve(sub), solve(sub, force_plain_riccati=True)
-    assert bool((k_sol.iterations == p_sol.iterations).all()), "iteration counts differ"
+    differ = k_sol.iterations != p_sol.iterations
+    k_merit, p_merit = k_sol.performance.merit, p_sol.performance.merit
+    tied = differ & ((k_merit - p_merit).abs() <= 1e-6 * p_merit.abs())
+    assert bool((differ == tied).all()), (
+        "iteration counts differ", k_sol.iterations[differ & ~tied].tolist(),
+        p_sol.iterations[differ & ~tied].tolist())
+    assert int(tied.sum()) <= 0.02 * sub.shape[0], f"{int(tied.sum())} tied scenarios"
     err = {}
-    for f in ("xs", "us"):
-        a, b = getattr(k_sol, f), getattr(p_sol, f)
+    for f, rows in (("xs", slice(None)), ("us", ~tied)):
+        a, b = getattr(k_sol, f)[rows], getattr(p_sol, f)[rows]
         err[f] = float((a - b).abs().max())
         assert bool(((a - b).abs() <= SOLVE_ATOL + SOLVE_RTOL * b.abs()).all()), (f, err[f])
 
@@ -236,6 +335,7 @@ def main_path(torch, riccati_cuda):
         "final_over_initial_merit": merit_drop,
         "riccati_launches": launches,
         "kernel_vs_plain_solve_max_abs_err": err,
+        "kernel_vs_plain_tied_scenarios": int(tied.sum()),
         "peak_device_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
     }
     emit(rec)
@@ -302,8 +402,10 @@ def check_legged_solution(torch, cfg, sol, what):
 def legged_tick_b1(torch, riccati_cuda, cfg, chains=5, ticks_per_chain=8):
     """The control-rate tick: chains of dependent receding-horizon ticks (the
     next tick starts at the solved xs[1], warm-started with the solved
-    inputs), one synchronise per chain."""
+    inputs), one synchronise per chain.  Its backward sweep is the CUDA kernel
+    with strict pivots, one launch per SQP iteration."""
     riccati_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
     t0 = time.perf_counter()
     cold = legged_solve(cfg, cfg["x0"], cfg["us_init"])  # also the warm-up
     torch.cuda.synchronize()
@@ -325,7 +427,15 @@ def legged_tick_b1(torch, riccati_cuda, cfg, chains=5, ticks_per_chain=8):
         for sol in sols:
             worst_g = max(worst_g, check_legged_solution(torch, cfg, sol, "b1 tick"))
             ticks.append(sol)
-    assert riccati_cuda.launch_count == 0, "the B = 1 lane takes the single-scenario sweep"
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    sweeps_run = int(cold.iterations[0]) + sum(int(s.iterations[0]) for s in ticks)
+    assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
+    assert dims == (1, LEGGED_N, 24, 12), dims
+    # The cold tick once more through the single-scenario sweep of torch ops.
+    single = legged_solve(cfg, cfg["x0"], cfg["us_init"], force_single_riccati=True)
+    torch.cuda.synchronize()
+    assert riccati_cuda.launch_count == launches, "the single-sweep route launches no kernel"
+    err_single = compare_solves(torch, cold, single, "b1 kernel vs single sweep")
     per_tick_ms = [1e3 * s / ticks_per_chain for s in chain_s]
     last = ticks[-1].performance
     rec = {
@@ -339,7 +449,8 @@ def legged_tick_b1(torch, riccati_cuda, cfg, chains=5, ticks_per_chain=8):
         "converged_per_tick": [bool(s.converged[0]) for s in ticks],
         "dynamics_violation_sse": float(last.dynamics_violation_sse[0]),
         "equality_constraints_sse": float(last.equality_constraints_sse[0]),
-        "worst_abs_foot_constraint": worst_g, "riccati_launches": 0,
+        "worst_abs_foot_constraint": worst_g, "riccati_launches": launches,
+        "kernel_dims": list(dims), "kernel_vs_single_sweep_solve_max_abs_err": err_single,
     }
     emit(rec)
     return rec, cold
@@ -359,7 +470,8 @@ def compare_solves(torch, a, b, what):
 
 def legged_tick_b256(torch, riccati_cuda, cfg, cold_b1, solves=3):
     """The scenario batch: 256 perturbed initial states, shared warm start and
-    params; its backward sweep is the CUDA kernel at (nx, nu) = (24, 12)."""
+    params; its backward sweep is the CUDA kernel at (nx, nu) = (24, 12) with
+    clamped pivots."""
     batch, nx = LEGGED_BATCH, 24
     i = torch.arange(batch, dtype=torch.float32, device=DEVICE)[:, None]
     j = torch.arange(nx, dtype=torch.float32, device=DEVICE)[None, :]
@@ -391,8 +503,8 @@ def legged_tick_b256(torch, riccati_cuda, cfg, cold_b1, solves=3):
     sub = x0s[:32]
     err_plain = compare_solves(
         torch, solve(sub), solve(sub, force_plain_riccati=True), "b256 kernel vs plain")
-    # Scenario 0 starts at the B = 1 lane's cold tick: clamped against NaN
-    # pivots, which a positive-definite Quu_hat never reaches.
+    # Scenario 0 starts at the B = 1 lane's cold tick: clamped against strict
+    # pivots, which differ only where Quu_hat is not positive definite.
     one = type(sol)(*(
         type(leaf)(*(v[:1] for v in leaf)) if isinstance(leaf, tuple) else leaf[:1]
         for leaf in sol))
@@ -586,11 +698,13 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     emit({"phase": "kernels", "kernels": ["riccati_backward"],
-          "shapes": [list(s) for s in KERNEL_SHAPES]})
+          "shapes": [list(s) for s in KERNEL_SHAPES + [STRICT_SHAPE]]})
     checks = [
         check_kernel(torch, riccati, riccati_cuda, shape, seed=11 + i, timed=i < 3)
         for i, shape in enumerate(KERNEL_SHAPES)
     ]
+    at_b1 = check_kernel(torch, riccati, riccati_cuda, STRICT_SHAPE, seed=21, timed=True)
+    check_strict_nan(torch, riccati, STRICT_SHAPE, seed=22, node=60)
     if args.skip_main_path:
         return 0
 
@@ -604,22 +718,21 @@ def main() -> int:
         profile_legged(torch, cfg, 1)
 
     at_main, at_legged = checks[0], checks[2]
-    shape_keys = ("nx", "nu", "B", "N", "kernel_ms", "sweep_only_ms", "plain_ms", "bound_ms",
-                  "bound_by", "max_abs_err")
+    shape_keys = ("nx", "nu", "B", "N", "pivots", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                  "bound_term", "bytes_ms", "flops_ms", "chain_ms", "max_abs_err")
+    b1_sweeps = b1["riccati_launches"] / (1 + b1["chains"] * b1["ticks_per_chain"])
     emit({"kernels": [{
         "name": "riccati_backward", "route": "cuda",
         "source": "ocs2_tpu_torch/csrc/riccati_backward.cu",
         "replaces": "ocs2_tpu/ops/riccati_pallas.py:189",
-        "launches": run["riccati_launches"] + b256["riccati_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "launches": run["riccati_launches"] + b1["riccati_launches"] + b256["riccati_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in checks + [at_b1]),
         "shape": dict(zip(("nx", "nu", "B", "N"), MAIN_SHAPE)),
-        "ms": at_main["kernel_ms"], "sweep_only_ms": at_main["sweep_only_ms"],
-        "plain_ms": at_main["plain_ms"],
+        "ms": at_main["kernel_ms"], "plain_ms": at_main["plain_ms"],
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
         "library_ms": None,
         # One entry per main path, each driven with the count set to 0 just
-        # before it.  The B = 1 tick takes the single-scenario sweep, as the
-        # reference's un-vmapped solve does, and launches no kernel.
+        # before it and read just after.
         "paths": [
             {"path": "ballbot_ilqr_b4096", "launches": run["riccati_launches"],
              **{k: at_main[k] for k in shape_keys}},
@@ -628,7 +741,11 @@ def main() -> int:
              "share_of_solve": b256["riccati_launches"] / b256["solves_timed"]
              * 1e-3 * at_legged["kernel_ms"] / b256["seconds_per_solve"],
              **{k: at_legged[k] for k in shape_keys}},
-            {"path": "legged_sqp_b1", "launches": b1["riccati_launches"]},
+            {"path": "legged_sqp_b1", "launches": b1["riccati_launches"],
+             "launches_per_tick": b1_sweeps,
+             "share_of_tick": b1_sweeps * at_b1["kernel_ms"] / b1["tick_ms_median"],
+             "single_sweep_ms": at_b1["single_sweep_ms"],
+             **{k: at_b1[k] for k in shape_keys}},
         ],
         "other_shapes": [{k: checks[1][k] for k in shape_keys}],
     }]})

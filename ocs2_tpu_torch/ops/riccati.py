@@ -15,14 +15,15 @@ Three backward passes share one recursion:
 * ``_lqr_backward_single`` — one scenario, matrix form, Cholesky from
   ``torch.linalg``; a non-positive-definite ``Quu_hat`` yields NaN from that
   node on (solvers mask non-finite steps on it).
-* ``_lqr_backward_batched`` — a batch of scenarios in batch-minor entry form
-  with clamped Cholesky pivots.  This is the plain PyTorch version of the
-  CUDA kernel in ``ops/riccati_cuda.py``.
+* ``_lqr_backward_batched`` — a batch of scenarios in batch-minor entry form,
+  with clamped Cholesky pivots or, ``strict``, with NaN from a pivot that is
+  not positive.  This is the plain PyTorch version of the CUDA kernel in
+  ``ops/riccati_cuda.py``, under either of its pivot policies.
 * ``lqr_backward`` — the solvers' entry point, which takes the place of the
-  reference's ``custom_vmap`` rule: a batch of one goes through the
-  single-scenario sweep (as the reference's un-vmapped solve does), a larger
-  batch through the CUDA kernel for tensors on the card and through the
-  plain version for tensors on the CPU.
+  reference's ``custom_vmap`` rule.  Tensors on the card go through the CUDA
+  kernel: strict pivots for a batch of one (as the reference's un-vmapped
+  solve fails), clamped pivots for a larger batch.  Tensors on the CPU go
+  through the single-scenario sweep (a batch of one) or the plain version.
 """
 from __future__ import annotations
 
@@ -162,8 +163,8 @@ def _lqr_backward_single(coeffs: LqrCoeffs, reg) -> LqrSolution:
 # -- batch-minor batched backward pass ---------------------------------------
 #
 # Entry layout: matrices [n, m, B] / vectors [n, B] — the batch dim is minor,
-# matrix dims are loop indices, every entry is a [B] vector.  The CUDA kernel
-# reads the same layout with one thread per scenario.
+# matrix dims are loop indices, every entry is a [B] vector.  (The CUDA kernel
+# reads the standard [B, N, n, m] layout; only its arithmetic is repeated here.)
 
 
 def _bm_mm(a, b):
@@ -186,15 +187,21 @@ def _bm_mTv(a, v):
     return torch.sum(a * v[:, None, :], dim=0)
 
 
-def _bm_cholesky(M, eps: float = PIVOT_EPS):
-    """Entry-form Cholesky of [n, n, B]: L[i][j] are [B] vectors."""
+def _bm_cholesky(M, eps: float = PIVOT_EPS, strict: bool = False):
+    """Entry-form Cholesky of [n, n, B]: L[i][j] are [B] vectors.  Pivots are
+    clamped at ``eps``; ``strict`` instead makes a pivot that is not positive
+    and finite NaN, which every later entry of that scenario inherits."""
     n = M.shape[0]
     L = [[None] * n for _ in range(n)]
     for j in range(n):
         s = M[j, j]
         for k in range(j):
             s = s - L[j][k] * L[j][k]
-        d = torch.sqrt(torch.clamp(s, min=eps))
+        if strict:
+            ok = (s > 0) & torch.isfinite(s)
+            d = torch.sqrt(torch.where(ok, s, torch.full_like(s, float("nan"))))
+        else:
+            d = torch.sqrt(torch.clamp(s, min=eps))
         L[j][j] = d
         inv_d = 1.0 / d
         for i in range(j + 1, n):
@@ -227,11 +234,14 @@ def _bm_sym(m):
     return 0.5 * (m + m.transpose(0, 1))
 
 
-def _lqr_backward_batched(coeffs: LqrCoeffs, reg) -> LqrSolution:
+def _lqr_backward_batched(coeffs: LqrCoeffs, reg, strict: bool = False) -> LqrSolution:
     """Batch-minor backward pass: coeffs leaves carry a LEADING batch dim
     [B, N, ...]; reg is [B] (or scalar).  Same recursion as
-    _lqr_backward_single, evaluated in entry form with clamped pivots; a
-    Python loop over time.  Fields of the result have a leading [B]."""
+    _lqr_backward_single, evaluated in entry form; a Python loop over time.
+    Pivots are clamped, or with ``strict`` a ``Quu_hat`` that is not positive
+    definite gives NaN in K, kff, S, s of that node and every earlier one of
+    its scenario and in dv1, dv2, where _lqr_backward_single puts it.  Fields
+    of the result have a leading [B]."""
     batch, n = coeffs.A.shape[0], coeffs.A.shape[1]
     dt, dev = coeffs.A.dtype, coeffs.A.device
     reg = torch.as_tensor(reg, dtype=dt, device=dev).expand(batch)
@@ -263,7 +273,7 @@ def _lqr_backward_batched(coeffs: LqrCoeffs, reg) -> LqrSolution:
         quu_hat = Quu[k] + _bm_mTm(b_mat, sB) + reg_eye
         qux_hat = Qux[k] + _bm_mTm(b_mat, sA)
         qxx_hat = Qxx[k] + _bm_mTm(a, sA)
-        L = _bm_cholesky(quu_hat)
+        L = _bm_cholesky(quu_hat, strict=strict)
         kk = -_bm_chol_solve(L, qux_hat)  # [nu, nx, B]
         kf = -_bm_chol_solve(L, qu_hat[:, None, :])[:, 0, :]  # [nu, B]
         quuk = _bm_mm(quu_hat, kk)
@@ -300,29 +310,36 @@ def _lqr_backward_batched(coeffs: LqrCoeffs, reg) -> LqrSolution:
     )
 
 
-def lqr_backward(coeffs: LqrCoeffs, reg, force_plain: bool = False) -> LqrSolution:
+def lqr_backward(
+    coeffs: LqrCoeffs, reg, force_plain: bool = False, force_single: bool = False
+) -> LqrSolution:
     """Riccati backward pass of a batch: coeffs leaves [B, N, ...], reg [B]
     (or scalar); fields of the result have a leading [B].
 
-    A batch of one takes the single-scenario sweep, on either device: NaN
-    from the node whose ``Quu_hat`` is not positive definite, which the SQP
-    solver's step masking relies on.  A larger batch on the card goes through
-    the CUDA kernel (``riccati_cuda``), which raises on anything it cannot
-    take, and on the CPU through the plain version; both clamp the pivots.
-    ``force_plain`` is a test hook: it runs the plain version whatever the
-    batch and the device, so that a whole solve can be held against the
-    kernel's."""
+    Tensors on the card go through the CUDA kernel (``riccati_cuda``), which
+    raises on anything it cannot take: with strict pivots for a batch of one
+    (NaN from the node whose ``Quu_hat`` is not positive definite, which the
+    SQP solver's step masking relies on), with clamped pivots for a larger
+    batch.  Tensors on the CPU take the single-scenario sweep for a batch of
+    one (the same NaN) and the plain version, clamped, otherwise.
+
+    Two test hooks, for either device, so that a whole solve can be held
+    against the kernel's: ``force_plain`` runs the plain version with clamped
+    pivots whatever the batch, ``force_single`` the single-scenario sweep (a
+    batch of one only)."""
     batch = coeffs.A.shape[0]
     if force_plain:
         return _lqr_backward_batched(coeffs, reg)
-    if batch == 1:
+    if force_single or (batch == 1 and not coeffs.A.is_cuda):
+        if batch != 1:
+            raise ValueError(f"the single-scenario sweep takes a batch of one, got {batch}")
         reg0 = torch.as_tensor(reg, dtype=coeffs.A.dtype, device=coeffs.A.device).reshape(())
         sol = _lqr_backward_single(LqrCoeffs(*(leaf[0] for leaf in coeffs)), reg0)
         return LqrSolution(*(leaf.unsqueeze(0) for leaf in sol))
     if coeffs.A.is_cuda:
         from .riccati_cuda import lqr_backward_cuda
 
-        return lqr_backward_cuda(coeffs, reg)
+        return lqr_backward_cuda(coeffs, reg, strict=batch == 1)
     return _lqr_backward_batched(coeffs, reg)
 
 

@@ -15,8 +15,9 @@ Per iteration, with no sequential rollout anywhere:
 * QR projection of the state-input equalities onto their null space
   (``ops/projection.py``);
 * the equality-constrained QP by the Riccati recursion
-  (``ops/riccati.lqr_backward``: the single-scenario sweep at B = 1, the CUDA
-  kernel for a batch on the card) and the forward pass ``lqr_forward``;
+  (``ops/riccati.lqr_backward``: the CUDA kernel on the card, with strict
+  pivots at B = 1 and clamped ones for a batch) and the forward pass
+  ``lqr_forward``;
 * a filter line search that evaluates the whole step-size grid of every
   scenario at once, ``[B, num_alphas]`` candidates;
 * inequality constraints as augmented-Lagrangian terms in the cost
@@ -166,6 +167,7 @@ def solve(
     settings: SqpSettings = SqpSettings(),
     device="cuda",
     force_plain_riccati: bool = False,
+    force_single_riccati: bool = False,
 ) -> SqpSolution:
     """Run SQP on a batch of scenarios to convergence.
 
@@ -173,8 +175,9 @@ def solve(
     [N+1, nx], us_init [B, N, nu] or [N, nu] (shared); al_init with a leading
     [B] on every leaf; ``params`` (a dict) is shared by all scenarios.
     Everything runs on ``device``; the problem, the params and the inputs
-    must live there.  ``force_plain_riccati`` is a test hook that routes the
-    backward sweep through the CUDA kernel's plain PyTorch version."""
+    must live there.  Two test hooks route the backward sweep away from the
+    CUDA kernel: ``force_plain_riccati`` through its plain PyTorch version,
+    ``force_single_riccati`` (B = 1) through the single-scenario sweep."""
     if settings.qp_solver != "riccati":
         raise NotImplementedError(
             f"qp_solver={settings.qp_solver!r}: the first-order PIPG back ends "
@@ -273,7 +276,9 @@ def solve(
 
         def solve_qp(qp: LqrCoeffs):
             qp = LqrCoeffs(*(leaf.contiguous() for leaf in qp))
-            sol = lqr_backward(qp, c.reg, force_plain=force_plain_riccati)
+            sol = lqr_backward(
+                qp, c.reg, force_plain=force_plain_riccati, force_single=force_single_riccati
+            )
             dxs, dus_r = lqr_forward(qp, sol, dx0)
             return dxs, dus_r, sol
 

@@ -2,9 +2,10 @@
 
 The CUDA kernel itself runs only on a card; what is held here is its plain
 PyTorch version (the arithmetic the kernel repeats) against the JAX batched
-path and against the Pallas kernel in interpret mode, the single-scenario
-sweep including its NaN behaviour, the forward pass, and the wrapper's
-argument checks (which run before any build and need no card).
+path and against the Pallas kernel in interpret mode, its strict-pivot form
+against the JAX single-scenario sweep, that sweep including its NaN
+behaviour, the forward pass, the wrapper's argument checks (which run before
+any build and need no card) and the launch geometry it hands the kernel.
 """
 import jax
 import jax.numpy as jnp
@@ -251,6 +252,143 @@ def test_batch_of_one_matches_jax_single(reg):
         np.testing.assert_allclose(
             getattr(mine, f).numpy()[0], np.asarray(getattr(ref, f)), rtol=RTOL, atol=ATOL,
             err_msg=f)
+
+
+# -- strict pivots: the plain version of the kernel's B = 1 route ---------------
+
+
+@pytest.fixture(scope="module", params=[1, 3])
+def strict_case(request):
+    batch = request.param
+    leaves = lq_numpy(batch, 10, 6, 3, seed=40 + batch)
+    regs = np.float32([1e-6, 0.1, 0.0])[:batch]
+    _, tc = both(leaves)
+    mine = riccati._lqr_backward_batched(tc, torch.as_tensor(regs), strict=True)
+    single = jax.jit(jriccati._lqr_backward_single)
+    refs = [single(_single(leaves, i)[0], jnp.asarray(regs[i])) for i in range(batch)]
+    return mine, refs
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_strict_plain_version_matches_jax_single(strict_case, field):
+    """On positive-definite data strict pivots change nothing: per scenario
+    the entry-form sweep is the reference's un-vmapped one (float32
+    reassociation)."""
+    mine, refs = strict_case
+    for i, ref in enumerate(refs):
+        np.testing.assert_allclose(
+            getattr(mine, field).numpy()[i], np.asarray(getattr(ref, field)),
+            rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_strict_plain_version_places_nan_as_jax_single(batch):
+    """A Quu that is not positive definite at one node of one scenario: NaN in
+    K, kff, S, s of that node and every earlier one and in dv1, dv2 of that
+    scenario, element for element as in the JAX single-scenario sweep; the
+    other scenarios stay finite."""
+    leaves = lq_numpy(batch, 8, 4, 2, seed=5)
+    leaves["Quu"][batch - 1, 5] = -100.0 * np.eye(2, dtype=np.float32)
+    _, tc = both(leaves)
+    mine = riccati._lqr_backward_batched(tc, 0.0, strict=True)
+    for i in range(batch):
+        ref = jriccati._lqr_backward_single(_single(leaves, i)[0], jnp.asarray(0.0))
+        for f in FIELDS:
+            a, b = getattr(mine, f).numpy()[i], np.asarray(getattr(ref, f))
+            np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f)
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=f)
+    assert np.isnan(mine.gains[batch - 1, :6].numpy()).all()
+    assert np.isfinite(mine.gains[batch - 1, 6:].numpy()).all()
+    assert np.isnan(mine.dv1[batch - 1].numpy()) and np.isnan(mine.dv2[batch - 1].numpy())
+    assert np.isfinite(mine.gains[:batch - 1].numpy()).all()
+    clamped = riccati._lqr_backward_batched(tc, 0.0)
+    assert np.isfinite(clamped.gains[batch - 1, 5].numpy()).all()
+
+
+def test_lqr_backward_hooks_on_cpu_tensors():
+    """On CPU tensors nothing is launched: a batch of one takes the
+    single-scenario sweep with or without force_single, which refuses a
+    larger batch; force_plain takes the clamped plain version."""
+    _, tc = both(lq_numpy(1, 6, 4, 2, seed=12))
+    before = riccati_cuda.launch_count
+    a = riccati.lqr_backward(tc, 1e-6)
+    b = riccati.lqr_backward(tc, 1e-6, force_single=True)
+    c = riccati.lqr_backward(tc, 1e-6, force_plain=True)
+    assert riccati_cuda.launch_count == before
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(a, f).numpy(), getattr(b, f).numpy())
+        np.testing.assert_allclose(
+            getattr(a, f).numpy(), getattr(c, f).numpy(), rtol=RTOL, atol=ATOL)
+    _, two = both(lq_numpy(2, 6, 4, 2, seed=12))
+    with pytest.raises(ValueError, match="batch of one"):
+        riccati.lqr_backward(two, 1e-6, force_single=True)
+
+
+# -- launch geometry of the CUDA kernel (plain Python, no card) -----------------
+
+import chip_smoke  # noqa: E402
+
+GEOMETRY_SHAPES = chip_smoke.KERNEL_SHAPES + [
+    chip_smoke.STRICT_SHAPE, (32, 32, 1, 100), (32, 32, 256, 100), (32, 32, 4096, 100),
+    (24, 12, 4096, 100), (1, 1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_launch_geometry_fits_the_card(shape):
+    nx, nu, batch, _ = shape
+    g = riccati_cuda.launch_geometry(nx, nu, batch)
+    group = riccati_cuda.threads_per_scenario(nx, nu)
+    assert group % 32 == 0 and 32 <= group <= riccati_cuda.MAX_BLOCK_THREADS
+    assert g.threads == g.scenarios_per_block * group
+    assert g.threads <= riccati_cuda.MAX_BLOCK_THREADS <= 1024
+    assert g.shared_bytes == g.scenarios_per_block * riccati_cuda.shared_bytes_per_scenario(nx, nu)
+    assert g.shared_bytes <= 232448
+    # Every scenario has a group, and no block is empty.
+    assert g.blocks * g.scenarios_per_block >= batch > (g.blocks - 1) * g.scenarios_per_block
+    # A group wider than a warp meets on a named barrier of its own (1 ... 15).
+    assert group == 32 or g.scenarios_per_block <= 15
+    # A small batch spreads over the card before blocks take several scenarios.
+    assert g.blocks >= min(batch, riccati_cuda.NUM_SMS - 4)
+
+
+def test_launch_geometry_at_the_main_paths_shapes():
+    legged = riccati_cuda.launch_geometry(24, 12, 256)
+    assert legged.blocks >= 128 and legged.scenarios_per_block == 1
+    tick = riccati_cuda.launch_geometry(24, 12, 1)
+    assert (tick.blocks, tick.threads) == (1, riccati_cuda.threads_per_scenario(24, 12))
+    ballbot = riccati_cuda.launch_geometry(10, 3, 4096)
+    resident_blocks = min(
+        -(-ballbot.blocks // riccati_cuda.NUM_SMS), 232448 // ballbot.shared_bytes)
+    assert resident_blocks * ballbot.threads // 32 >= 16  # warps resident on an SM
+    with pytest.raises(ValueError, match="no launch geometry"):
+        riccati_cuda.launch_geometry(200, 200, 4)
+
+
+@pytest.mark.parametrize("pair, odd", [
+    ((24, 12), ()), ((12, 4), ()), ((10, 3), ("B", "b", "qx", "Quu", "qu", "Qux")),
+    ((3, 5), ("A", "B", "b", "Qxx", "qx", "Quu", "qu", "Qux")),
+])
+def test_copy_width_is_chosen_per_leaf(pair, odd):
+    """16-byte bulk copies where a leaf's per-node run is a multiple of 16
+    bytes, 4-byte copies for the others."""
+    widths = riccati_cuda.copy_widths(*pair)
+    floats = riccati_cuda.stage_leaf_floats(*pair)
+    assert tuple(widths) == riccati_cuda.STAGE_LEAVES
+    for name in riccati_cuda.STAGE_LEAVES:
+        assert widths[name] == (4 if name in odd else 16), name
+        assert (4 * floats[name]) % widths[name] == 0
+
+
+def test_cuda_wrapper_refuses_a_misaligned_bulk_leaf_only_on_the_card():
+    """The alignment of a leaf is checked after the device: a CPU tensor is
+    refused as such, whatever its alignment."""
+    good = _good()
+    flat = torch.zeros(good.A.numel() + 1)
+    shifted = good._replace(A=flat[1:].view_as(good.A).copy_(good.A))
+    assert shifted.A.is_contiguous() and shifted.A.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        riccati_cuda.lqr_backward_cuda(shifted, torch.zeros(4))
 
 
 def _indefinite_lq(seed):

@@ -282,6 +282,19 @@ def test_single_and_plain_riccati_routes_agree_at_batch_one():
     np.testing.assert_allclose(a.us.numpy(), b.us.numpy(), atol=1e-4)
 
 
+def test_force_single_riccati_is_the_cpu_route_at_batch_one_and_refuses_a_batch():
+    """The hook that holds the card's B = 1 kernel route against the
+    single-scenario sweep: on the CPU that sweep is the B = 1 route already,
+    so the solve is the same bit for bit; a larger batch is refused."""
+    a = _solve_toy(_toy_x0(1))
+    b = _solve_toy(_toy_x0(1), force_single_riccati=True)
+    np.testing.assert_array_equal(a.iterations.numpy(), b.iterations.numpy())
+    np.testing.assert_array_equal(a.xs.numpy(), b.xs.numpy())
+    np.testing.assert_array_equal(a.us.numpy(), b.us.numpy())
+    with pytest.raises(ValueError, match="batch of one"):
+        _solve_toy(_toy_x0(2), force_single_riccati=True)
+
+
 def test_non_finite_step_is_rejected_and_grows_the_regularization():
     """An indefinite reduced Hessian at B = 1 gives NaN from the sweep: the
     step is zeroed, the line search rejects, reg grows tenfold, and the
