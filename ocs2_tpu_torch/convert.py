@@ -14,8 +14,10 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from .core.reference import TargetTrajectories
+from .core.controllers import LinearController
+from .core.reference import ModeSchedule, TargetTrajectories
 from .core.types import PerformanceIndex
+from .mpc.mpc import MpcPolicy
 from .oc.time_discretization import TimeGrid
 from .ops.projection import Projection
 from .ops.riccati import LqrCoeffs, LqrSolution
@@ -100,3 +102,31 @@ def time_grid_from_numpy(rec: Any, device="cuda") -> TimeGrid:
         is_jump=np.asarray(_field(rec, "is_jump"), np.float32),
         modes=np.asarray(_field(rec, "modes"), np.int32),
     ).device(device)
+
+
+def linear_controller_from_numpy(rec: Any, device="cuda") -> LinearController:
+    return _record(LinearController, rec, device)
+
+
+def mode_schedule_from_numpy(rec: Any) -> ModeSchedule:
+    """A ModeSchedule stays host data: float32 event times, int32 modes and
+    event count, as numpy arrays."""
+    return ModeSchedule(
+        event_times=np.array(_field(rec, "event_times"), dtype=np.float32),
+        mode_sequence=np.array(_field(rec, "mode_sequence"), dtype=np.int32),
+        num_events=np.array(_field(rec, "num_events"), dtype=np.int32),
+    )
+
+
+def mpc_policy_from_numpy(rec: Any, device="cuda") -> MpcPolicy:
+    """An ``MpcPolicy`` of the JAX package (controller, xs, us, node times,
+    performance, mode schedule) as the port's, so it can drive the port's
+    ``Mrt``."""
+    return MpcPolicy(
+        controller=linear_controller_from_numpy(_field(rec, "controller"), device),
+        xs=_f32(_field(rec, "xs"), device),
+        us=_f32(_field(rec, "us"), device),
+        times=_f32(_field(rec, "times"), device),
+        performance=_record(PerformanceIndex, _field(rec, "performance"), device),
+        mode_schedule=mode_schedule_from_numpy(_field(rec, "mode_schedule")),
+    )

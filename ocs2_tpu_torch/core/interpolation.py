@@ -43,5 +43,7 @@ def interpolate(times: Tensor, values: Tensor, t) -> Tensor:
 
 
 def interpolate_batch(times: Tensor, values: Tensor, ts: Tensor) -> Tensor:
-    """Interpolation at many query times ts [M]."""
-    return interpolate(times, values, ts)
+    """Interpolation at many query times ts [M] -> [M, *values.shape[1:]],
+    also when the trajectory has a single sample (then every query gets it)."""
+    out = interpolate(times, values, ts)
+    return out.expand(ts.shape + values.shape[1:]) if times.shape[0] == 1 else out

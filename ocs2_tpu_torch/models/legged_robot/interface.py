@@ -1,10 +1,8 @@
 """Legged-robot problem assembly: base-tracking cost, friction cone,
-zero-force and zero/normal-velocity constraints, swing references.
+zero-force and zero/normal-velocity constraints, swing references, and the
+gait-synchronized reference manager of the MPC runtime.
 
-Counterpart of ``ocs2_tpu/models/legged_robot/interface.py``.  The
-``SwitchedModelReferenceManager`` of the reference (gait-synchronized
-reference injection before every solve) builds on ``mpc/mpc.py`` and waits
-for the MPC-runtime slice of the port.
+Counterpart of ``ocs2_tpu/models/legged_robot/interface.py``.
 """
 from __future__ import annotations
 
@@ -15,6 +13,7 @@ import torch
 
 from ...core import penalties as pen
 from ...core.reference import TargetTrajectories
+from ...mpc.mpc import ReferenceManager
 from ...oc.problem import (
     OptimalControlProblem,
     quadratic_cost,
@@ -24,6 +23,7 @@ from ...oc.problem import (
 from ...oc.time_discretization import TimeGrid
 from . import constraints as con
 from . import model
+from .gait import GAIT_MAP, GaitSchedule
 from .swing import plan_swing_references
 
 # Base-tracking weights.
@@ -144,3 +144,45 @@ def make_params(
         "swing_z": torch.as_tensor(swing.z, device=device),
         "fz_max": torch.tensor(500.0, dtype=torch.float32, device=device),
     }
+
+
+class SwitchedModelReferenceManager(ReferenceManager):
+    """Injects the gait's ModeSchedule and the swing references before every
+    solve: ``pre_solver_run`` takes the schedule of [t0, tf] from the gait,
+    ``augment_params`` plans the swing references on the tick's concrete
+    grid (numpy on the host) and puts them on the device of the params'
+    target, which is the Mpc's."""
+
+    def __init__(
+        self,
+        gait_schedule: GaitSchedule,
+        target: Optional[TargetTrajectories] = None,
+        swing_height: float = 0.08,
+        device="cuda",
+    ):
+        super().__init__(target or default_target(device=device))
+        self.gait_schedule = gait_schedule
+        self.swing_height = swing_height
+
+    def set_gait(self, name_or_template) -> None:
+        tpl = (
+            GAIT_MAP[name_or_template]()
+            if isinstance(name_or_template, str)
+            else name_or_template
+        )
+        self.gait_schedule.set_template(tpl)
+
+    def pre_solver_run(self, t0: float, tf: float, x0) -> None:
+        super().pre_solver_run(t0, tf, x0)
+        self._mode_schedule = self.gait_schedule.mode_schedule(t0, tf)
+
+    def augment_params(self, grid: TimeGrid, params: dict) -> dict:
+        swing = plan_swing_references(
+            np.asarray(grid.times), np.asarray(grid.modes), self.swing_height
+        )
+        dev = params["target"].times.device
+        return dict(
+            params,
+            swing_vz=torch.as_tensor(swing.vz, device=dev),
+            swing_z=torch.as_tensor(swing.z, device=dev),
+        )
