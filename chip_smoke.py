@@ -21,7 +21,15 @@ main paths and checks that they went through the kernels:
   (1, 100, 24, 12) with strict pivots, one launch per SQP iteration;
 * ``sqp.solve`` on the quadrotor (nx = 12, nu = 4), a batch of 4096 hover
   scenarios, 40 intervals over 2 s, rk4, 8 iterations at most; the sweep is
-  the kernel at (12, 4) with clamped pivots.
+  the kernel at (12, 4) with clamped pivots;
+* the perceptive lane: ``terrain_check`` (the elevation-map problem's LQ
+  approximation, its SDF and 1,000 height / plane queries, card against
+  CPU); ``perceptive_mpc`` (the segmented-planes problem on a decomposed
+  stepped map, N = 46 over 1.4 s, a host foothold re-plan and one solve per
+  tick, 20 ticks); ``perceptive_closed_loop`` (``Mpc`` with the
+  ``PerceptiveReferenceManager`` in ``dummy_loop``, N = 32, 2 s at 60 Hz
+  control and 15 Hz MPC); the sweep of both is the kernel at (24, 12) with
+  strict pivots.
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when there
@@ -390,11 +398,13 @@ def check_legged_solution(torch, cfg, sol, what):
     return worst
 
 
-def legged_tick_b1(torch, riccati_cuda, cfg, chains=5, ticks_per_chain=8):
+def legged_tick_b1(torch, riccati_cuda, cfg, chains=3, ticks_per_chain=8):
     """The control-rate tick: chains of dependent receding-horizon ticks (the
     next tick starts at the solved xs[1], warm-started with the solved
     inputs), one synchronise per chain.  Its backward sweep is the CUDA kernel
-    with strict pivots, one launch per SQP iteration."""
+    with strict pivots, one launch per SQP iteration.  Three chains, not
+    five: the perceptive phases took the script past its time target
+    (PERF.md)."""
     riccati_cuda.launch_count = 0
     riccati_cuda.last_launch_dims = None
     t0 = time.perf_counter()
@@ -447,7 +457,7 @@ def legged_tick_b1(torch, riccati_cuda, cfg, chains=5, ticks_per_chain=8):
     return rec, cold
 
 
-def compare_with_ties(torch, k_sol, p_sol, what, max_tied_share=0.02):
+def compare_with_ties(torch, k_sol, p_sol, what, max_tied_share=0.02, force_atol=None):
     """The kernel route's batch solve against the plain version's.
 
     A scenario whose two routes stop at the same merit to float32 rounding
@@ -456,8 +466,10 @@ def compare_with_ties(torch, k_sol, p_sol, what, max_tied_share=0.02):
     already sat on it is decided by the last bit (one route then runs to the
     budget without moving).  Ties are counted and held to max_tied_share of
     the scenarios, to equal merits and to the tolerance in xs; every other
-    scenario must agree in iterations, xs and us.  Returns (largest
-    differences, number of ties, the differing scenarios)."""
+    scenario must agree in iterations, xs and us.  With ``force_atol`` the
+    legged robot's contact forces (the first 12 inputs) are held to it in
+    place of SOLVE_ATOL.  Returns (largest differences, number of ties, the
+    differing scenarios)."""
     differ = k_sol.iterations != p_sol.iterations
     k_merit, p_merit = k_sol.performance.merit, p_sol.performance.merit
     rel = (k_merit - p_merit).abs() / p_merit.abs().clamp(min=1e-30)
@@ -472,8 +484,12 @@ def compare_with_ties(torch, k_sol, p_sol, what, max_tied_share=0.02):
     err = {}
     for f, keep in (("xs", slice(None)), ("us", ~tied)):
         a, b = getattr(k_sol, f)[keep], getattr(p_sol, f)[keep]
-        err[f] = float((a - b).abs().max())
-        assert bool(((a - b).abs() <= SOLVE_ATOL + SOLVE_RTOL * b.abs()).all()), (what, f, err[f])
+        atol = torch.full(b.shape[-1:], SOLVE_ATOL, device=b.device)
+        if f == "us" and force_atol is not None:
+            atol[:12] = force_atol
+            err["contact_forces"] = float((a - b)[..., :12].abs().max()) if b.numel() else 0.0
+        err[f] = float((a - b).abs().max()) if b.numel() else 0.0
+        assert bool(((a - b).abs() <= atol + SOLVE_RTOL * b.abs()).all()), (what, f, err[f])
     return err, int(tied.sum()), details
 
 
@@ -852,10 +868,377 @@ def quadrotor_sqp_b4096(torch, riccati_cuda, at_quad, iterations_out=None, solve
     return rec
 
 
-def profile_legged(torch, cfg, batch):
+# -- the perceptive lane -----------------------------------------------------------
+
+# bench.py:287 (bench_perceptive_mpc): the stepped map, 1.4 s over 46 intervals,
+# 20 ticks after a warm-up, 8 SQP iterations at most.
+PERC_STEP_X, PERC_STEP_H, PERC_HORIZON, PERC_N, PERC_TICKS = 0.45, 0.12, 1.4, 46, 20
+# tests/test_segmented_planes.py:332 (TestClosedLoopPerceptive): the 0.08 m step,
+# N = 32 over 1 s, 6 iterations at most, 2 s at 60 Hz control and 15 Hz MPC.
+LOOP_STEP_H, LOOP_HORIZON, LOOP_N = 0.08, 1.0, 32
+LOOP_DURATION, LOOP_MRT_HZ, LOOP_MPC_HZ = 2.0, 60.0, 15.0
+# The test's bounds: past x = 0.35 m after 2 s; no foot deeper than 0.04 m
+# below the terrain outside the band of +-0.1 m at the step edge.
+LOOP_MIN_X, LOOP_MAX_DEPTH, LOOP_EDGE_BAND = 0.35, 0.04, 0.1
+PERC_SHAPE, LOOP_SHAPE = (24, 12, 1, PERC_N), (24, 12, 1, LOOP_N)
+RESOLVED_TICKS = 3
+TERRAIN_RTOL = 1e-4  # terrain_check: the card against the CPU
+
+
+def stepped_map(step_x, high, device=None, extent=4.0, res=0.05):
+    """The lane's elevation map: flat, then ``high`` for x > step_x (on the
+    card unless ``device`` says otherwise)."""
+    from ocs2_tpu_torch.models.legged_robot.terrain import ElevationMap
+
+    m = int(extent / res)
+    heights = np.zeros((m, m), np.float32)
+    heights[-extent / 2 + (np.arange(m) + 0.5) * res > step_x, :] = high
+    return ElevationMap.create(heights, origin_xy=(-extent / 2, -extent / 2), resolution=res,
+                               device=device or DEVICE)
+
+
+def trot_grid(horizon, n):
+    from ocs2_tpu_torch.models.legged_robot.gait import GaitSchedule, trot_gait
+    from ocs2_tpu_torch.oc.time_discretization import make_time_grid
+
+    ms = GaitSchedule(trot_gait(0.7)).mode_schedule(0.0, horizon)
+    return make_time_grid(0.0, horizon, n, event_times=ms.event_times,
+                          mode_sequence=ms.mode_sequence)
+
+
+def target_between(times, first, last):
+    """TargetTrajectories from the default state to ``last`` (dicts of state
+    entries to set), weight-compensating inputs."""
+    from ocs2_tpu_torch.core.reference import TargetTrajectories
+    from ocs2_tpu_torch.models.legged_robot import model
+
+    x = model.default_state("cpu").numpy()
+    states = np.stack([x.copy(), x.copy()])
+    for row, entries in enumerate((first, last)):
+        for i, v in entries.items():
+            states[row, i] = v
+    u0 = model.weight_compensating_input(np.ones(4, np.float32), "cpu").numpy()
+    return TargetTrajectories.create(times, states, np.stack([u0, u0]), device=DEVICE)
+
+
+def perceptive_setup(torch):
+    """The perceptive lane of bench.py:287 on the card: the segmented-planes
+    problem on the decomposed stepped map, its first foothold plan, and the
+    host mirrors the per-tick planner reads."""
+    from ocs2_tpu_torch.models.legged_robot import model
+    from ocs2_tpu_torch.models.legged_robot.foothold_planner import (
+        make_perceptive_params,
+        make_segmented_perceptive_problem,
+    )
+    from ocs2_tpu_torch.models.legged_robot.segmented_planes import decompose_planes
+    from ocs2_tpu_torch.models.legged_robot.terrain import ElevationMap
+    from ocs2_tpu_torch.solvers import sqp
+
+    em = stepped_map(PERC_STEP_X, PERC_STEP_H)
+    terr = decompose_planes(em, device=DEVICE)
+    grid = trot_grid(PERC_HORIZON, PERC_N)
+    x0 = model.default_state(DEVICE)
+    target = target_between([0.0, PERC_HORIZON], {0: 0.6},
+                            {0: 0.6, 6: 0.85, 8: model.STAND_HEIGHT + PERC_STEP_H})
+    u0 = model.weight_compensating_input(np.ones(4, np.float32), DEVICE)
+    return {
+        "em": em, "terrain": terr, "grid": grid, "x0": x0, "target": target,
+        "problem": make_segmented_perceptive_problem(device=DEVICE),
+        "params": make_perceptive_params(grid, terr, em, x0, target, device=DEVICE),
+        "us_init": u0[None].expand(PERC_N, model.NU).contiguous(),
+        "settings": sqp.SqpSettings(max_iterations=8, integrator="rk2"),
+        "terrain_host": terr.to_numpy(),
+        "em_host": ElevationMap(*(v.cpu().numpy() for v in em)),
+        "target_host": target._replace(times=target.times.cpu().numpy(),
+                                       states=target.states.cpu().numpy()),
+    }
+
+
+def perceptive_plan(cfg, x):
+    """One tick's re-plan on the current state (one read of x from the card)
+    and the plan's one copy to the card."""
+    from ocs2_tpu_torch.models.legged_robot.foothold_planner import plan_footholds, plan_to_params
+
+    plan = plan_footholds(cfg["terrain_host"], cfg["em_host"], cfg["grid"].times,
+                          cfg["grid"].modes, x, cfg["target_host"])
+    return plan_to_params(plan, cfg["params"])
+
+
+# Contact forces of a re-solved perceptive tick.  Near the end of the horizon
+# the split of a stance foot's tangential force between x and y is held by
+# the 1e-3 input weight alone, so it moves with float32 rounding where xs and
+# the merit do not: in the closed loop's third tick two such entries of about
+# -27.5 N differ by 9.2e-3 between the kernel and the single sweep on an
+# NVIDIA H100 (xs by 1.0e-5, PERF.md).  Everything else is held at SOLVE_ATOL.
+FORCE_ATOL = 2e-2
+
+
+def resolve_single(torch, riccati_cuda, recorded, solve, what):
+    """Re-solve recorded ticks from their exact inputs through the
+    single-scenario sweep of torch ops; equal iterations and xs / us within
+    SOLVE_ATOL + SOLVE_RTOL |value| (contact forces FORCE_ATOL), a tie at
+    equal merit counted.  The kernel's launch counter must not move."""
+    before = riccati_cuda.launch_count
+    err, ties = {}, []
+    for i, (sol, kwargs) in enumerate(recorded):
+        single = solve(force_single_riccati=True, **kwargs)
+        torch.cuda.synchronize()
+        err[f"tick{i}"], tied, details = compare_with_ties(
+            torch, sol, single, f"{what} tick {i} kernel vs single sweep", max_tied_share=1.0,
+            force_atol=FORCE_ATOL)
+        ties += [dict(d, tick=i) for d in details] if tied else []
+    assert riccati_cuda.launch_count == before, "the single-sweep route launches no kernel"
+    return err, ties
+
+
+def perceptive_mpc(torch, riccati_cuda, cfg, at_perc):
+    """bench.py:287 rebuilt on the port: per tick a host re-plan on the
+    current state, the plan's copy, and a solve warm in ``us``; then
+    x <- xs[1].  The sweep is the kernel at (1, 46, 24, 12), strict pivots."""
+    from ocs2_tpu_torch.solvers import sqp
+
+    def solve(x, us, params, **kw):
+        return sqp.solve(cfg["problem"], cfg["grid"], x, params, us_init=us,
+                         settings=cfg["settings"], device=DEVICE, **kw)
+
+    warm = solve(cfg["x0"], cfg["us_init"], cfg["params"])  # the warm-up tick
+    torch.cuda.synchronize()
+    x, us = cfg["x0"], cfg["us_init"]
+    ticks, states = [], [cfg["x0"]]
+    riccati_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for _ in range(PERC_TICKS):
+        t0 = time.perf_counter()
+        params = perceptive_plan(cfg, x)
+        t1 = time.perf_counter()
+        sol = solve(x, us, params)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ticks.append({"plan_s": t1 - t0, "solve_s": t2 - t1, "sol": sol,
+                      "inputs": dict(x=x, us=us, params=params)})
+        x, us = sol.xs[0, 1], sol.us[0]
+        states.append(x)
+    total_s = time.perf_counter() - t_all
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    its = [int(k["sol"].iterations[0]) for k in ticks]
+    assert launches == sum(its) and launches > 0, (launches, its)
+    assert dims == (1, PERC_N, 24, 12), dims
+    states = torch.stack(states)
+    for k in ticks:
+        assert bool(torch.isfinite(k["sol"].xs).all()) and bool(torch.isfinite(k["sol"].us).all())
+    err, ties = resolve_single(
+        torch, riccati_cuda, [(k["sol"], k["inputs"]) for k in ticks[:RESOLVED_TICKS]], solve,
+        "perceptive_mpc")
+    plan_ms = [1e3 * k["plan_s"] for k in ticks]
+    solve_ms = [1e3 * k["solve_s"] for k in ticks]
+    rec = {
+        "phase": "perceptive_mpc", "B": 1, "N": PERC_N, "nx": 24, "nu": 24, "reduced_nu": 12,
+        "horizon_s": PERC_HORIZON, "max_iterations": cfg["settings"].max_iterations,
+        "segments": int(cfg["terrain"].valid.sum()), "ticks": PERC_TICKS,
+        "perceptive_mpc_ticks_per_s": PERC_TICKS / total_s,
+        "perceptive_host_plan_ms": statistics.mean(plan_ms),
+        "host_plan_ms_median": statistics.median(plan_ms), "host_plan_ms_worst": max(plan_ms),
+        "solve_ms_median": statistics.median(solve_ms), "solve_ms_worst": max(solve_ms),
+        "tick_ms_median": statistics.median(p + q for p, q in zip(plan_ms, solve_ms)),
+        "warm_up_iterations": int(warm.iterations[0]), "iterations_per_tick": its,
+        "converged_per_tick": [bool(k["sol"].converged[0]) for k in ticks],
+        "riccati_launches": launches, "kernel_dims": list(dims),
+        "kernel_share_of_tick": launches / PERC_TICKS * at_perc["kernel_ms"]
+        / statistics.median(p + q for p, q in zip(plan_ms, solve_ms)),
+        "final_state_base_xyz": states[-1, 6:9].tolist(),
+        "kernel_vs_single_sweep_solve_max_abs_err": err, "kernel_vs_single_sweep_ties": ties,
+    }
+    emit(rec)
+    return rec, {"iterations_per_tick": its, "warm_up_iterations": int(warm.iterations[0]),
+                 "merit_per_tick": [float(k["sol"].performance.merit[0]) for k in ticks],
+                 "states": states.tolist()}
+
+
+def perceptive_closed_loop(torch, riccati_cuda, at_loop):
+    """The JAX package's TestClosedLoopPerceptive on the card: ``Mpc`` with
+    the segmented-planes problem and ``PerceptiveReferenceManager`` in
+    ``MpcMrtInterface``, ``dummy_loop`` for 2 s (30 ticks, 120 control
+    steps).  Each tick's sweep is the kernel at (1, 32, 24, 12)."""
+    from ocs2_tpu_torch.models.legged_robot import model
+    from ocs2_tpu_torch.models.legged_robot.foothold_planner import (
+        PerceptiveReferenceManager,
+        make_perceptive_params,
+        make_segmented_perceptive_problem,
+    )
+    from ocs2_tpu_torch.models.legged_robot.gait import GaitSchedule, trot_gait
+    from ocs2_tpu_torch.models.legged_robot.segmented_planes import decompose_planes
+    from ocs2_tpu_torch.mpc.mpc import Mpc, MpcSettings
+    from ocs2_tpu_torch.mpc.mrt import MpcMrtInterface, dummy_loop
+    from ocs2_tpu_torch.solvers import sqp
+
+    em = stepped_map(PERC_STEP_X, LOOP_STEP_H)
+    terr = decompose_planes(em, device=DEVICE)
+    x0 = model.default_state(DEVICE)
+    target = target_between([0.0, 4.0], {0: 0.4},
+                            {0: 0.4, 6: 1.6, 8: model.STAND_HEIGHT + LOOP_STEP_H})
+    rm = PerceptiveReferenceManager(terr, em, GaitSchedule(trot_gait(0.7)), target=target,
+                                    device=DEVICE)
+    mpc = Mpc(make_segmented_perceptive_problem(device=DEVICE),
+              make_perceptive_params(trot_grid(LOOP_HORIZON, LOOP_N), terr, em, x0, target,
+                                     device=DEVICE),
+              MpcSettings(time_horizon=LOOP_HORIZON, num_intervals=LOOP_N, solver="sqp"),
+              solver_settings=sqp.SqpSettings(max_iterations=6, integrator="rk2"),
+              reference_manager=rm, device=DEVICE)
+    iface = MpcMrtInterface(mpc)
+    ticks, step_s, last = [], [], {"count": 0, "t": None}
+
+    def observe(t, x, u):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if mpc.solve_timer.count != last["count"]:  # an MPC tick ran before this step
+            last["count"] = mpc.solve_timer.count
+            ticks.append({"solve_s": mpc.solve_timer.last, "tick_s": mpc.tick_timer.last,
+                          "plan_s": rm.plan_timer.last,
+                          "iterations": int(mpc.last_solution.iterations[0]),
+                          "converged": bool(mpc.last_solution.converged[0]),
+                          "inputs": mpc.last_solve_inputs, "sol": mpc.last_solution})
+        elif last["t"] is not None:
+            step_s.append(now - last["t"])
+        last["t"] = now
+
+    torch.cuda.synchronize()
+    riccati_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
+    t0 = time.perf_counter()
+    _, states, inputs = dummy_loop(iface, x0, duration=LOOP_DURATION, mrt_frequency=LOOP_MRT_HZ,
+                                   mpc_frequency=LOOP_MPC_HZ, observers=[observe])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+
+    n_ticks = int(round(LOOP_DURATION * LOOP_MPC_HZ))
+    n_steps = int(round(LOOP_DURATION * LOOP_MRT_HZ))
+    assert len(ticks) == n_ticks and states.shape == (n_steps + 1, 24), (len(ticks), states.shape)
+    assert bool(torch.isfinite(states).all()) and bool(torch.isfinite(inputs).all())
+    its = [k["iterations"] for k in ticks]
+    assert launches == sum(its) and launches > 0, (launches, its)
+    assert dims == (1, LOOP_N, 24, 12), dims
+    final_x = float(states[-1, 6])
+    assert final_x > LOOP_MIN_X, f"the base reached x = {final_x} m, not past {LOOP_MIN_X}"
+    feet = model.foot_positions_world(states)
+    depth = em.height_at(feet[..., :2]) - feet[..., 2]
+    band = (feet[..., 0] - PERC_STEP_X).abs() < LOOP_EDGE_BAND
+    worst_depth = float(torch.where(band, torch.zeros_like(depth), depth).max())
+    assert worst_depth < LOOP_MAX_DEPTH, f"a foot {worst_depth} m below the terrain"
+
+    def solve(**kw):
+        inp = dict(kw)
+        return sqp.solve(mpc.problem, inp.pop("grid"), inp.pop("x0"), inp.pop("params"),
+                         settings=mpc.solver_settings, device=DEVICE, **inp)
+
+    err, ties = resolve_single(
+        torch, riccati_cuda, [(k["sol"], k["inputs"]) for k in ticks[:RESOLVED_TICKS]], solve,
+        "perceptive_closed_loop")
+    solve_ms = [1e3 * k["solve_s"] for k in ticks]
+    host_ms = [1e3 * (k["tick_s"] - k["solve_s"]) for k in ticks]
+    plan_ms = [1e3 * k["plan_s"] for k in ticks]
+    rec = {
+        "phase": "perceptive_closed_loop", "B": 1, "N": LOOP_N, "nx": 24, "nu": 24,
+        "reduced_nu": 12, "max_iterations": mpc.solver_settings.max_iterations,
+        "duration_s": LOOP_DURATION, "mrt_frequency": LOOP_MRT_HZ, "mpc_frequency": LOOP_MPC_HZ,
+        "ticks": len(ticks), "control_steps": n_steps, "loop_seconds": loop_s,
+        "segments": int(terr.valid.sum()),
+        "mpc_tick_ms_median": statistics.median(solve_ms), "mpc_tick_ms_worst": max(solve_ms),
+        "mpc_tick_host_ms_median": statistics.median(host_ms),
+        "mpc_tick_host_ms_worst": max(host_ms),
+        "planner_ms_median": statistics.median(plan_ms), "planner_ms_worst": max(plan_ms),
+        "mrt_step_ms_median": 1e3 * statistics.median(step_s),
+        "mrt_step_ms_worst": 1e3 * max(step_s),
+        "iterations_per_tick": its, "converged_per_tick": [k["converged"] for k in ticks],
+        "spread_warm_starts": mpc.spread_count, "final_base_x": final_x,
+        "worst_foot_depth_outside_edge_band": worst_depth,
+        "riccati_launches": launches, "kernel_dims": list(dims),
+        "kernel_share_of_tick": launches / len(ticks) * at_loop["kernel_ms"]
+        / statistics.median(solve_ms),
+        "kernel_vs_single_sweep_solve_max_abs_err": err, "kernel_vs_single_sweep_ties": ties,
+    }
+    emit(rec)
+    record = {"iterations_per_tick": its,
+              "merit_per_tick": [float(k["sol"].performance.merit[0]) for k in ticks],
+              "states": states.tolist()}
+    return rec, record
+
+
+def terrain_check(torch):
+    """The elevation-map problem's in-solver gathers and plane fits on the
+    card against the same calls on the CPU in this process: approximate_lq
+    of terrain.make_perceptive_problem at N = 46, ElevationMap.sdf, and 1,000
+    random height_at / plane_at queries.  Tolerance rtol 1e-4 / atol 1e-5
+    (LQ leaves: atol 1e-5 times the leaf's largest entry, Hessians reach
+    1e4)."""
+    from ocs2_tpu_torch.models.legged_robot import interface, model, terrain
+    from ocs2_tpu_torch.oc.approx import approximate_lq
+
+    grid = trot_grid(PERC_HORIZON, PERC_N)
+    rng = np.random.default_rng(5)
+    xs = model.default_state("cpu").numpy()[None] + 0.02 * rng.standard_normal((PERC_N + 1, 24))
+    xs[:, 6] = np.linspace(-0.2, 0.9, PERC_N + 1)  # the feet cross the step
+    u0 = model.weight_compensating_input(np.ones(4, np.float32), "cpu").numpy()
+    us = u0[None] + 5.0 * rng.standard_normal((PERC_N, 24))
+    xy = rng.uniform(-2.2, 2.2, (1000, 2)).astype(np.float32)
+    out, times = {}, {}
+    for dev in ("cpu", DEVICE):
+        em = stepped_map(PERC_STEP_X, PERC_STEP_H, device=dev)
+        problem = terrain.make_perceptive_problem(em, device=dev)
+        params = interface.make_params(grid, device=dev)
+        x_t = torch.as_tensor(xs[None].astype(np.float32), device=dev)
+        u_t = torch.as_tensor(us[None].astype(np.float32), device=dev)
+        q = torch.as_tensor(xy, device=dev)
+        lq = approximate_lq(problem, grid, x_t, u_t, params, method="rk2")
+        plane = em.plane_at(q)
+        out[dev] = {"lq": lq, "sdf": em.sdf(-0.1, 0.5).values, "height": em.height_at(q),
+                    "normal": plane.normal, "point": plane.point}
+        if dev == DEVICE:
+            times = {
+                "approximate_lq_ms": time_ms(torch, lambda: approximate_lq(
+                    problem, grid, x_t, u_t, params, method="rk2"), reps=3, warmup=1),
+                "sdf_ms": time_ms(torch, lambda: em.sdf(-0.1, 0.5), reps=5, warmup=1),
+                "plane_at_1000_ms": time_ms(torch, lambda: em.plane_at(q), reps=10, warmup=2),
+                "height_at_1000_ms": time_ms(torch, lambda: em.height_at(q), reps=10, warmup=2),
+            }
+    torch.cuda.synchronize()
+    errs, bad = {}, []
+
+    def held(name, a, b, atol):
+        a = a.cpu()
+        err = float((a - b).abs().max())
+        errs[name] = err
+        if a.shape != b.shape or not bool(((a - b).abs() <= atol + TERRAIN_RTOL * b.abs()).all()):
+            bad.append(name)
+
+    for name in ("sdf", "height"):
+        held(name, out[DEVICE][name], out["cpu"][name], 1e-6)
+    for name in ("normal", "point"):
+        held(name, out[DEVICE][name], out["cpu"][name], ATOL)
+    for rec_name in ("cost", "dynamics", "eq"):
+        for f in getattr(out["cpu"]["lq"], rec_name)._fields:
+            b = getattr(getattr(out["cpu"]["lq"], rec_name), f)
+            if b is None:
+                continue
+            held(f"lq.{rec_name}.{f}", getattr(getattr(out[DEVICE]["lq"], rec_name), f), b,
+                 ATOL * max(1.0, float(b.abs().max())))
+    rec = {"phase": "terrain_check", "N": PERC_N, "queries": len(xy),
+           "sdf_shape": list(out["cpu"]["sdf"].shape), "max_abs_err": errs,
+           "rtol": TERRAIN_RTOL, "atol": ATOL, "ok": not bad, **times}
+    emit(rec)
+    if bad:
+        raise SystemExit(f"terrain_check: the card disagrees with the CPU in {bad}")
+    return rec
+
+
+def profile_legged(torch, cfg, batch, path=None):
     """Stage times of one SQP iteration of the legged tick at the cold start
     (host-clock medians, each stage synchronised), the two QR routes of the
-    projection side by side, and the card's busy share over one whole solve."""
+    projection side by side, and the card's busy share over one whole solve.
+    ``cfg`` is the flagship tick's (``legged_setup``) or the perceptive
+    lane's (``perceptive_setup``)."""
     from ocs2_tpu_torch.oc.approx import approximate_lq, example_params
     from ocs2_tpu_torch.oc.metrics import al_dual_ascent, al_merit, evaluate_trajectory
     from ocs2_tpu_torch.ops import projection, riccati
@@ -864,7 +1247,8 @@ def profile_legged(torch, cfg, batch):
 
     timed = lambda fn: timed_stage(torch, fn)  # noqa: E731
     problem, grid, params, st = cfg["problem"], cfg["grid"], cfg["params"], cfg["settings"]
-    n, nx, nu = LEGGED_N, 24, 24
+    n, nx, nu = grid.num_intervals, 24, 24
+    path = path or f"legged_sqp_b{batch}"
     i = torch.arange(batch, dtype=torch.float32, device=DEVICE)[:, None]
     x0s = cfg["x0"][None] + 1e-3 * torch.sin(i * torch.arange(nx, device=DEVICE)[None, :])
     xs = x0s[:, None, :].expand(batch, n + 1, nx).contiguous()
@@ -906,12 +1290,78 @@ def profile_legged(torch, cfg, batch):
     _, stages["al_merit_and_dual_update_ms"] = timed(
         lambda: (al_merit(metrics, al_c), al_dual_ascent(metrics, al_c)))
 
-    emit({"phase": "profile_stages", "path": f"legged_sqp_b{batch}", "B": batch, "N": n,
-          "stages": stages})
+    emit({"phase": "profile_stages", "path": path, "B": batch, "N": n, "stages": stages})
     x0 = x0s if batch > 1 else cfg["x0"]
     busy = device_busy(torch, lambda: legged_solve(cfg, x0, cfg["us_init"]))
-    emit({"phase": "profile", "path": f"legged_sqp_b{batch}", "B": batch, "N": n,
-          "profiler": busy})
+    emit({"phase": "profile", "path": path, "B": batch, "N": n, "profiler": busy})
+    return stages
+
+
+def profile_perceptive(torch, cfg):
+    """Stages of one perceptive tick (host-clock medians, each synchronised):
+    the host re-plan, the plan's copy, the grid, then one SQP iteration's
+    stages (``profile_legged`` on the lane's problem) and the whole solve;
+    the card's busy share over one tick; and where the card's time goes in
+    the terrain's own work: the share of gather kernels in one
+    approximate_lq of the elevation-map problem, and the distance transform
+    of ElevationMap.sdf."""
+    from ocs2_tpu_torch.models.legged_robot import interface, terrain
+    from ocs2_tpu_torch.models.legged_robot.foothold_planner import plan_footholds, plan_to_params
+    from ocs2_tpu_torch.oc.approx import approximate_lq
+
+    timed = lambda fn, reps=3: timed_stage(torch, fn, reps)  # noqa: E731
+    x = cfg["x0"]
+    stages = {}
+    plan, stages["plan_footholds_ms"] = timed(lambda: plan_footholds(
+        cfg["terrain_host"], cfg["em_host"], cfg["grid"].times, cfg["grid"].modes, x,
+        cfg["target_host"]))
+    params, stages["plan_copy_ms"] = timed(lambda: plan_to_params(plan, cfg["params"]))
+    _, stages["make_time_grid_ms"] = timed(lambda: trot_grid(PERC_HORIZON, PERC_N))
+    stages.update(profile_legged(torch, dict(cfg, params=params), 1, path="perceptive_mpc"))
+    _, stages["solve_ms"] = timed(lambda: legged_solve(dict(cfg, params=params), x,
+                                                       cfg["us_init"]), reps=1)
+    emit({"phase": "profile_stages", "path": "perceptive_mpc_tick", "N": PERC_N,
+          "stages": stages})
+    busy = device_busy(torch, lambda: legged_solve(dict(cfg, params=perceptive_plan(cfg, x)), x,
+                                                   cfg["us_init"]))
+    emit({"phase": "profile", "path": "perceptive_mpc_tick", "N": PERC_N, "profiler": busy})
+
+    em = cfg["em"]
+    problem = terrain.make_perceptive_problem(em, device=DEVICE)
+    grid = cfg["grid"]
+    xs = cfg["x0"][None, None].expand(1, PERC_N + 1, 24).contiguous()
+    us = cfg["us_init"][None]
+    p = interface.make_params(grid, device=DEVICE)
+    for name, fn in (("elevation_problem_approximate_lq",
+                      lambda: approximate_lq(problem, grid, xs, us, p, method="rk2")),
+                     ("elevation_map_sdf", lambda: em.sdf(-0.1, 0.5))):
+        emit({"phase": "profile", "path": name, "kernels": kernel_split(torch, fn)})
+
+
+def kernel_split(torch, fn, top=8):
+    """Device time of one call of fn by kernel family from torch.profiler:
+    the total, the share of gather / index kernels, and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+            for e in prof.key_averages()]
+    rows = [r for r in rows if r[1] > 0]
+    total = sum(r[1] for r in rows)
+    if total <= 0:
+        raise SystemExit("torch.profiler recorded no device time")
+    gather = sum(r[1] for r in rows if any(w in r[0].lower() for w in ("index", "gather")))
+    rows.sort(key=lambda r: -r[1])
+    return {"device_us": total, "wall_us_under_profiler": wall_us,
+            "device_busy_share": total / wall_us, "gather_index_us": gather,
+            "gather_index_share_of_device": gather / total,
+            "top": [{"name": k[:80], "device_us": d, "count": c} for k, d, c in rows[:top]]}
 
 
 def device_busy(torch, fn):
@@ -1003,6 +1453,9 @@ def main() -> int:
     ap.add_argument("--closed-loop-out", metavar="PATH",
                     help="write the closed loop's iterations per tick and states as JSON "
                          "(for tools/legged_closed_loop_reference.py)")
+    ap.add_argument("--perceptive-out", metavar="PATH",
+                    help="write both perceptive phases' iterations per tick and states as "
+                         "JSON (for tools/perceptive_reference.py)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1026,13 +1479,16 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     emit({"phase": "kernels", "kernels": ["riccati_backward"],
-          "shapes": [list(s) for s in KERNEL_SHAPES + [STRICT_SHAPE]]})
+          "shapes": [list(s) for s in KERNEL_SHAPES + [STRICT_SHAPE, PERC_SHAPE, LOOP_SHAPE]]})
     checks = [
         check_kernel(torch, riccati, riccati_cuda, shape, seed=11 + i, timed=i < 3)
         for i, shape in enumerate(KERNEL_SHAPES)
     ]
     at_b1 = check_kernel(torch, riccati, riccati_cuda, STRICT_SHAPE, seed=21, timed=True)
     check_strict_nan(torch, riccati, STRICT_SHAPE, seed=22, node=60)
+    # The perceptive lanes' strict shapes: the MPC at N = 46, the closed loop at 32.
+    at_perc = check_kernel(torch, riccati, riccati_cuda, PERC_SHAPE, seed=23, timed=True)
+    at_loop = check_kernel(torch, riccati, riccati_cuda, LOOP_SHAPE, seed=24, timed=True)
     if args.skip_main_path:
         return 0
 
@@ -1042,11 +1498,19 @@ def main() -> int:
     b256 = legged_tick_b256(torch, riccati_cuda, cfg, cold_b1)
     closed, iface = legged_mpc_closed_loop(torch, riccati_cuda, args.closed_loop_out)
     quad = quadrotor_sqp_b4096(torch, riccati_cuda, checks[1], args.iterations_out)
+    terrain_check(torch)
+    perc_cfg = perceptive_setup(torch)
+    perc, perc_record = perceptive_mpc(torch, riccati_cuda, perc_cfg, at_perc)
+    loop, loop_record = perceptive_closed_loop(torch, riccati_cuda, at_loop)
+    if args.perceptive_out:
+        with open(args.perceptive_out, "w") as f:
+            json.dump({"perceptive_mpc": perc_record, "perceptive_closed_loop": loop_record}, f)
     if args.profile:
         profile_main_path(torch)
         profile_legged(torch, cfg, LEGGED_BATCH)
         profile_legged(torch, cfg, 1)
         profile_mpc(torch, iface)
+        profile_perceptive(torch, perc_cfg)
 
     at_main, at_quad, at_legged = checks[0], checks[1], checks[2]
     shape_keys = ("nx", "nu", "B", "N", "pivots", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1056,8 +1520,8 @@ def main() -> int:
         "name": "riccati_backward", "route": "cuda",
         "source": "ocs2_tpu_torch/csrc/riccati_backward.cu",
         "replaces": "ocs2_tpu/ops/riccati_pallas.py:189",
-        "launches": sum(r["riccati_launches"] for r in (run, b1, b256, closed, quad)),
-        "max_abs_err": max(c["max_abs_err"] for c in checks + [at_b1]),
+        "launches": sum(r["riccati_launches"] for r in (run, b1, b256, closed, quad, perc, loop)),
+        "max_abs_err": max(c["max_abs_err"] for c in checks + [at_b1, at_perc, at_loop]),
         "shape": dict(zip(("nx", "nu", "B", "N"), MAIN_SHAPE)),
         "ms": at_main["kernel_ms"], "plain_ms": at_main["plain_ms"],
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
@@ -1086,6 +1550,16 @@ def main() -> int:
              "launches_per_solve": quad["launches_per_solve"],
              "share_of_solve": quad["kernel_share_of_solve"],
              **{k: at_quad[k] for k in shape_keys}},
+            {"path": "perceptive_mpc", "launches": perc["riccati_launches"],
+             "launches_per_tick": perc["riccati_launches"] / perc["ticks"],
+             "share_of_tick": perc["kernel_share_of_tick"],
+             "single_sweep_ms": at_perc["single_sweep_ms"],
+             **{k: at_perc[k] for k in shape_keys}},
+            {"path": "perceptive_closed_loop", "launches": loop["riccati_launches"],
+             "launches_per_tick": loop["riccati_launches"] / loop["ticks"],
+             "share_of_tick": loop["kernel_share_of_tick"],
+             "single_sweep_ms": at_loop["single_sweep_ms"],
+             **{k: at_loop[k] for k in shape_keys}},
         ],
     }]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -17,6 +17,10 @@ import torch
 from .core.controllers import LinearController
 from .core.reference import ModeSchedule, TargetTrajectories
 from .core.types import PerformanceIndex
+from .models.legged_robot.foothold_planner import FootholdPlan
+from .models.legged_robot.segmented_planes import SegmentedPlanesTerrain
+from .models.legged_robot.terrain import ElevationMap
+from .models.perceptive import SignedDistanceField
 from .mpc.mpc import MpcPolicy
 from .oc.time_discretization import TimeGrid
 from .ops.projection import Projection
@@ -79,7 +83,8 @@ def al_state_from_numpy(rec: Any, device="cuda") -> AlState:
 def params_from_numpy(params: Mapping, device="cuda") -> dict:
     """The ``{"target": TargetTrajectories, ...}`` parameter dict of a model's
     ``make_params``: target trajectories and AL states become the port's
-    records, any other array leaf a float32 tensor."""
+    records, any other array leaf (swing references, the foothold plan's
+    ``fh_*`` arrays, an elevation grid) a float32 tensor."""
     out = {}
     for key, val in params.items():
         fields = set(val.keys()) if isinstance(val, Mapping) else set(
@@ -130,3 +135,27 @@ def mpc_policy_from_numpy(rec: Any, device="cuda") -> MpcPolicy:
         performance=_record(PerformanceIndex, _field(rec, "performance"), device),
         mode_schedule=mode_schedule_from_numpy(_field(rec, "mode_schedule")),
     )
+
+
+def elevation_map_from_numpy(rec: Any, device="cuda") -> ElevationMap:
+    return _record(ElevationMap, rec, device)
+
+
+def signed_distance_field_from_numpy(rec: Any, device="cuda") -> SignedDistanceField:
+    return _record(SignedDistanceField, rec, device)
+
+
+def foothold_plan_from_numpy(rec: Any, device="cuda") -> FootholdPlan:
+    """A FootholdPlan of the JAX package as float32 tensors on ``device``
+    (``foothold_planner.plan_to_params`` takes it as it takes a host plan)."""
+    return _record(FootholdPlan, rec, device)
+
+
+def segmented_planes_terrain_from_numpy(rec: Any, device="cuda") -> SegmentedPlanesTerrain:
+    """The segmented-planes arrays; ``num_vertices`` stays int32 and
+    ``valid`` bool."""
+    dtypes = {"num_vertices": np.int32, "valid": bool}
+    return SegmentedPlanesTerrain(**{
+        name: torch.as_tensor(np.array(_field(rec, name), dtype=dtypes.get(name, np.float32)),
+                              device=device)
+        for name in SegmentedPlanesTerrain._fields})

@@ -25,6 +25,13 @@ def lookup_index(times: Tensor, t) -> Tensor:
     return idx.clamp(0, max(times.shape[0] - 2, 0))
 
 
+def _rows(values: Tensor, i: Tensor) -> Tensor:
+    """values[i] for an index tensor i of any shape [...] -> [..., rest].
+    ``index_select`` maps under ``torch.func.vmap`` also inside ``jacrev``,
+    where indexing with a 0-dim index tensor made in the function does not."""
+    return values.index_select(0, i.reshape(-1)).reshape(i.shape + values.shape[1:])
+
+
 def interpolate(times: Tensor, values: Tensor, t) -> Tensor:
     """Linearly interpolate values [M, ...] stamped at times [M] at query t
     (any shape [...]); returns [..., *values.shape[1:]].  Clamps to the
@@ -33,12 +40,12 @@ def interpolate(times: Tensor, values: Tensor, t) -> Tensor:
         return values[0]
     t = _as_query(times, t)
     i = lookup_index(times, t)
-    t0 = times[i]
-    t1 = times[i + 1]
+    t0 = _rows(times, i)
+    t1 = _rows(times, i + 1)
     alpha = ((t - t0) / torch.clamp(t1 - t0, min=1e-12)).clamp(0.0, 1.0)
     alpha = alpha.reshape(alpha.shape + (1,) * (values.ndim - 1))
-    v0 = values[i]
-    v1 = values[i + 1]
+    v0 = _rows(values, i)
+    v1 = _rows(values, i + 1)
     return v0 + alpha * (v1 - v0)
 
 

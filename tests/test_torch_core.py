@@ -89,6 +89,24 @@ def test_interpolate_many_queries_and_vmap():
     np.testing.assert_allclose(mapped.numpy(), np.asarray(ref), atol=ATOL)
 
 
+def test_target_state_under_jacrev_inside_vmap():
+    """A residual that reads the target at its node's time, differentiated by
+    jacrev inside a vmap over nodes (the Gauss-Newton path of the
+    motion-tracking cost).  Indexing with the 0-dim segment index made inside
+    the function raised there; the rows are gathered by index_select."""
+    rng = np.random.default_rng(6)
+    times = np.float32([0.0, 1.0, 3.0])
+    states = rng.standard_normal((3, 4)).astype(np.float32)
+    jt = jref.TargetTrajectories.create(times, states, states[:, :2])
+    tt = reference.TargetTrajectories.create(times, states, states[:, :2], device="cpu")
+    ts = np.float32([0.2, 1.5, 2.9, 4.0])
+    xs = rng.standard_normal((4, 4)).astype(np.float32)
+    ref = jax.vmap(jax.jacrev(lambda x, t: (x - jt.state_at(t)) ** 2), (0, 0))(
+        jnp.asarray(xs), jnp.asarray(ts))
+    mine = torch.func.vmap(torch.func.jacrev(lambda x, t: (x - tt.state_at(t)) ** 2))(T(xs), T(ts))
+    np.testing.assert_allclose(mine.numpy(), np.asarray(ref), atol=ATOL)
+
+
 def test_target_trajectories_state_and_input_at():
     rng = np.random.default_rng(5)
     times = np.float32([0.0, 1.0, 3.0])

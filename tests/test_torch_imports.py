@@ -32,6 +32,7 @@ _FRESH = textwrap.dedent("""
     from ocs2_tpu_torch.ops import _build
     assert not _build._LOADED
     print("IMPORTED", len(names), int(_build.BUILD_DIR.exists()))
+    print("MODULES", " ".join(names))
 """)
 
 
@@ -92,6 +93,47 @@ def test_entry_points_default_to_the_card():
     ]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def _perceptive_entry_points():
+    from ocs2_tpu_torch import convert
+    from ocs2_tpu_torch.models.legged_robot import (
+        foothold_planner,
+        motion_tracking,
+        segmented_planes,
+        terrain,
+    )
+
+    return [
+        terrain.ElevationMap.create, terrain.ElevationMap.flat, terrain.make_perceptive_problem,
+        segmented_planes.decompose_planes, foothold_planner.make_segmented_perceptive_problem,
+        foothold_planner.make_perceptive_params, foothold_planner.PerceptiveReferenceManager,
+        motion_tracking.motion_tracking_cost, motion_tracking.make_torque_limits_soft,
+        convert.elevation_map_from_numpy, convert.segmented_planes_terrain_from_numpy,
+        convert.foothold_plan_from_numpy, convert.signed_distance_field_from_numpy,
+    ]
+
+
+@pytest.mark.parametrize("index", range(13))
+def test_perceptive_entry_points_default_to_the_card(index):
+    import inspect
+
+    fn = _perceptive_entry_points()[index]
+    assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+@pytest.mark.parametrize("module", [
+    "ops/smallmat.py", "models/perceptive.py", "models/legged_robot/terrain.py",
+    "models/legged_robot/segmented_planes.py", "models/legged_robot/foothold_planner.py",
+    "models/legged_robot/motion_tracking.py"])
+def test_perceptive_modules_are_present_and_imported(fresh_import, module):
+    """Each module of the perceptive slice exists and is among those the fresh
+    interpreter imported without pulling in JAX or the JAX package."""
+    proc, _ = fresh_import
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names = proc.stdout.split("MODULES", 1)[1].split()
+    assert (PKG / module).exists()
+    assert "ocs2_tpu_torch." + module[:-3].replace("/", ".") in names
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
