@@ -26,10 +26,15 @@ main paths and checks that they went through the kernels:
   approximation, its SDF and 1,000 height / plane queries, card against
   CPU); ``perceptive_mpc`` (the segmented-planes problem on a decomposed
   stepped map, N = 46 over 1.4 s, a host foothold re-plan and one solve per
-  tick, 20 ticks); ``perceptive_closed_loop`` (``Mpc`` with the
+  tick, 12 ticks); ``perceptive_closed_loop`` (``Mpc`` with the
   ``PerceptiveReferenceManager`` in ``dummy_loop``, N = 32, 2 s at 60 Hz
   control and 15 Hz MPC); the sweep of both is the kernel at (24, 12) with
-  strict pivots.
+  strict pivots;
+* the ComKino lane (the full kinodynamic model): ``comkino_perceptive_closed_loop``
+  (``Mpc`` with the ``PerceptiveReferenceManager`` on the segmented problem of
+  the ComKino model, N = 32, 1 s at 50 Hz control and 12.5 Hz MPC) and
+  ``comkino_trot`` (one cold trot solve at N = 40, 8 iterations); the sweep of
+  both is the kernel at (24, 12) with strict pivots.
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when there
@@ -398,13 +403,13 @@ def check_legged_solution(torch, cfg, sol, what):
     return worst
 
 
-def legged_tick_b1(torch, riccati_cuda, cfg, chains=3, ticks_per_chain=8):
+def legged_tick_b1(torch, riccati_cuda, cfg, chains=2, ticks_per_chain=8):
     """The control-rate tick: chains of dependent receding-horizon ticks (the
     next tick starts at the solved xs[1], warm-started with the solved
     inputs), one synchronise per chain.  Its backward sweep is the CUDA kernel
-    with strict pivots, one launch per SQP iteration.  Three chains, not
-    five: the perceptive phases took the script past its time target
-    (PERF.md)."""
+    with strict pivots, one launch per SQP iteration.  Two chains, not five:
+    the perceptive and the ComKino phases took the script past its time
+    target (PERF.md §4)."""
     riccati_cuda.launch_count = 0
     riccati_cuda.last_launch_dims = None
     t0 = time.perf_counter()
@@ -457,7 +462,8 @@ def legged_tick_b1(torch, riccati_cuda, cfg, chains=3, ticks_per_chain=8):
     return rec, cold
 
 
-def compare_with_ties(torch, k_sol, p_sol, what, max_tied_share=0.02, force_atol=None):
+def compare_with_ties(torch, k_sol, p_sol, what, max_tied_share=0.02, force_atol=None,
+                      joint_atol=None):
     """The kernel route's batch solve against the plain version's.
 
     A scenario whose two routes stop at the same merit to float32 rounding
@@ -468,8 +474,9 @@ def compare_with_ties(torch, k_sol, p_sol, what, max_tied_share=0.02, force_atol
     the scenarios, to equal merits and to the tolerance in xs; every other
     scenario must agree in iterations, xs and us.  With ``force_atol`` the
     legged robot's contact forces (the first 12 inputs) are held to it in
-    place of SOLVE_ATOL.  Returns (largest differences, number of ties, the
-    differing scenarios)."""
+    place of SOLVE_ATOL, with ``joint_atol`` its joint velocities (the last
+    12).  Returns (largest differences, number of ties, the differing
+    scenarios)."""
     differ = k_sol.iterations != p_sol.iterations
     k_merit, p_merit = k_sol.performance.merit, p_sol.performance.merit
     rel = (k_merit - p_merit).abs() / p_merit.abs().clamp(min=1e-30)
@@ -488,6 +495,9 @@ def compare_with_ties(torch, k_sol, p_sol, what, max_tied_share=0.02, force_atol
         if f == "us" and force_atol is not None:
             atol[:12] = force_atol
             err["contact_forces"] = float((a - b)[..., :12].abs().max()) if b.numel() else 0.0
+        if f == "us" and joint_atol is not None:
+            atol[12:] = joint_atol
+            err["joint_velocities"] = float((a - b)[..., 12:].abs().max()) if b.numel() else 0.0
         err[f] = float((a - b).abs().max()) if b.numel() else 0.0
         assert bool(((a - b).abs() <= atol + SOLVE_RTOL * b.abs()).all()), (what, f, err[f])
     return err, int(tied.sum()), details
@@ -871,8 +881,9 @@ def quadrotor_sqp_b4096(torch, riccati_cuda, at_quad, iterations_out=None, solve
 # -- the perceptive lane -----------------------------------------------------------
 
 # bench.py:287 (bench_perceptive_mpc): the stepped map, 1.4 s over 46 intervals,
-# 20 ticks after a warm-up, 8 SQP iterations at most.
-PERC_STEP_X, PERC_STEP_H, PERC_HORIZON, PERC_N, PERC_TICKS = 0.45, 0.12, 1.4, 46, 20
+# 8 SQP iterations at most; 12 ticks after a warm-up (20 until the ComKino phases
+# took the script past its time target, PERF.md §4).
+PERC_STEP_X, PERC_STEP_H, PERC_HORIZON, PERC_N, PERC_TICKS = 0.45, 0.12, 1.4, 46, 12
 # tests/test_segmented_planes.py:332 (TestClosedLoopPerceptive): the 0.08 m step,
 # N = 32 over 1 s, 6 iterations at most, 2 s at 60 Hz control and 15 Hz MPC.
 LOOP_STEP_H, LOOP_HORIZON, LOOP_N = 0.08, 1.0, 32
@@ -882,6 +893,19 @@ LOOP_DURATION, LOOP_MRT_HZ, LOOP_MPC_HZ = 2.0, 60.0, 15.0
 LOOP_MIN_X, LOOP_MAX_DEPTH, LOOP_EDGE_BAND = 0.35, 0.04, 0.1
 PERC_SHAPE, LOOP_SHAPE = (24, 12, 1, PERC_N), (24, 12, 1, LOOP_N)
 RESOLVED_TICKS = 3
+
+# -- the ComKino lane (tests/test_comkino.py) --------------------------------------
+# :333 (test_comkino_perceptive_closed_loop): the kinodynamic model on the 0.08 m
+# step, N = 32 over 1 s, 5 iterations at most, 1 s at 50 Hz control and 12.5 Hz
+# MPC; the base past x = 0.15 m, |attitude| below 0.4 rad.
+CK_HORIZON, CK_N, CK_MAX_ITERATIONS = 1.0, 32, 5
+CK_DURATION, CK_MRT_HZ, CK_MPC_HZ = 1.0, 50.0, 12.5
+CK_MIN_X, CK_MAX_ATTITUDE = 0.15, 0.4
+# :85 (test_comkino_sqp_trot_converges): one cold solve, N = 40 over 1 s, 8
+# iterations; dynamics violation below 1e-3, the base within 0.12 m of stand height.
+CK_TROT_HORIZON, CK_TROT_N, CK_TROT_ITERATIONS = 1.0, 40, 8
+CK_TROT_MAX_DEFECT, CK_TROT_HEIGHT_TOL = 1e-3, 0.12
+CK_TROT_SHAPE = (24, 12, 1, CK_TROT_N)
 TERRAIN_RTOL = 1e-4  # terrain_check: the card against the CPU
 
 
@@ -964,31 +988,63 @@ def perceptive_plan(cfg, x):
     return plan_to_params(plan, cfg["params"])
 
 
-# Contact forces of a re-solved perceptive tick.  Near the end of the horizon
-# the split of a stance foot's tangential force between x and y is held by
-# the 1e-3 input weight alone, so it moves with float32 rounding where xs and
-# the merit do not: in the closed loop's third tick two such entries of about
-# -27.5 N differ by 9.2e-3 between the kernel and the single sweep on an
-# NVIDIA H100 (xs by 1.0e-5, PERF.md).  Everything else is held at SOLVE_ATOL.
+# Contact forces of a re-solved tick.  Near the end of the horizon the split of
+# a stance foot's force between x and y is held by the 1e-3 input weight alone,
+# so it moves with float32 rounding where xs and the merit do not.  On the
+# perceptive closed loop's third tick (tools/perceptive_reference.py
+# --force-spread on the card's record of an NVIDIA H100): the JAX package's own
+# single and batched sweeps differ by 2.6e-3, its float32 and float64 solves by
+# 5.2e-3; the card's kernel lies 1.3e-2 from that float64 solve and 9.2e-3 from
+# the card's single sweep, the port's CPU single sweep 1.7e-2 from the kernel
+# (tools/perceptive_port_resolve.py).  Two float32 routes thus differ by up to
+# 1.8e-2: FORCE_ATOL.  On ComKino the split leaks into the joint velocities
+# through the mass matrix, and its loop's third tick is more sensitive still:
+# on the card's inputs of that tick the JAX package's one solve and its solve
+# inside jax.vmap differ by 0.069 N in the forces and 7.2e-3 rad/s in the joint
+# velocities, and float32 routes of the two packages by up to 0.16 N and
+# 1.3e-2 rad/s (tools/comkino_reference.py --compare on the card's record; on
+# the JAX loop's own third tick 0.094 N and 0.011 rad/s): CK_FORCE_ATOL and
+# CK_JOINT_ATOL for the ComKino lane.  Everything else is held at SOLVE_ATOL.
 FORCE_ATOL = 2e-2
+CK_FORCE_ATOL, CK_JOINT_ATOL = 0.1, 2e-2
 
 
-def resolve_single(torch, riccati_cuda, recorded, solve, what):
+def host_tree(obj):
+    """Tensors, arrays, named tuples and dicts as nested lists and dicts (JSON)."""
+    if hasattr(obj, "_asdict"):
+        obj = obj._asdict()
+    if isinstance(obj, dict):
+        return {k: host_tree(v) for k, v in obj.items()}
+    if hasattr(obj, "tolist"):
+        return obj.tolist()
+    return obj
+
+
+def resolve_single(torch, riccati_cuda, recorded, solve, what, force_atol=FORCE_ATOL,
+                   joint_atol=None):
     """Re-solve recorded ticks from their exact inputs through the
     single-scenario sweep of torch ops; equal iterations and xs / us within
-    SOLVE_ATOL + SOLVE_RTOL |value| (contact forces FORCE_ATOL), a tie at
-    equal merit counted.  The kernel's launch counter must not move."""
+    SOLVE_ATOL + SOLVE_RTOL |value| (contact forces force_atol, joint
+    velocities joint_atol when given), a tie at equal merit counted.  The
+    kernel's launch counter must not move."""
     before = riccati_cuda.launch_count
-    err, ties = {}, []
+    err, ties, singles = {}, [], []
     for i, (sol, kwargs) in enumerate(recorded):
         single = solve(force_single_riccati=True, **kwargs)
         torch.cuda.synchronize()
+        singles.append(single)
         err[f"tick{i}"], tied, details = compare_with_ties(
             torch, sol, single, f"{what} tick {i} kernel vs single sweep", max_tied_share=1.0,
-            force_atol=FORCE_ATOL)
+            force_atol=force_atol, joint_atol=joint_atol)
         ties += [dict(d, tick=i) for d in details] if tied else []
     assert riccati_cuda.launch_count == before, "the single-sweep route launches no kernel"
-    return err, ties
+    return err, ties, singles
+
+
+def solve_summary(sol):
+    """One scenario's iterations, merit, xs and us as host lists."""
+    return {"iterations": int(sol.iterations[0]), "merit": float(sol.performance.merit[0]),
+            "xs": sol.xs[0].tolist(), "us": sol.us[0].tolist()}
 
 
 def perceptive_mpc(torch, riccati_cuda, cfg, at_perc):
@@ -1028,7 +1084,7 @@ def perceptive_mpc(torch, riccati_cuda, cfg, at_perc):
     states = torch.stack(states)
     for k in ticks:
         assert bool(torch.isfinite(k["sol"].xs).all()) and bool(torch.isfinite(k["sol"].us).all())
-    err, ties = resolve_single(
+    err, ties, _ = resolve_single(
         torch, riccati_cuda, [(k["sol"], k["inputs"]) for k in ticks[:RESOLVED_TICKS]], solve,
         "perceptive_mpc")
     plan_ms = [1e3 * k["plan_s"] for k in ticks]
@@ -1051,9 +1107,12 @@ def perceptive_mpc(torch, riccati_cuda, cfg, at_perc):
         "kernel_vs_single_sweep_solve_max_abs_err": err, "kernel_vs_single_sweep_ties": ties,
     }
     emit(rec)
+    # Each tick's state and warm start (its plan is the host planner's on that
+    # state), for re-solving a tick elsewhere.
     return rec, {"iterations_per_tick": its, "warm_up_iterations": int(warm.iterations[0]),
                  "merit_per_tick": [float(k["sol"].performance.merit[0]) for k in ticks],
-                 "states": states.tolist()}
+                 "states": states.tolist(),
+                 "us_init_per_tick": [k["inputs"]["us"].tolist() for k in ticks]}
 
 
 def perceptive_closed_loop(torch, riccati_cuda, at_loop):
@@ -1133,7 +1192,7 @@ def perceptive_closed_loop(torch, riccati_cuda, at_loop):
         return sqp.solve(mpc.problem, inp.pop("grid"), inp.pop("x0"), inp.pop("params"),
                          settings=mpc.solver_settings, device=DEVICE, **inp)
 
-    err, ties = resolve_single(
+    err, ties, singles = resolve_single(
         torch, riccati_cuda, [(k["sol"], k["inputs"]) for k in ticks[:RESOLVED_TICKS]], solve,
         "perceptive_closed_loop")
     solve_ms = [1e3 * k["solve_s"] for k in ticks]
@@ -1160,10 +1219,197 @@ def perceptive_closed_loop(torch, riccati_cuda, at_loop):
         "kernel_vs_single_sweep_solve_max_abs_err": err, "kernel_vs_single_sweep_ties": ties,
     }
     emit(rec)
+    # The re-solved ticks' exact solver arguments and both routes' results.
+    record = {"iterations_per_tick": its,
+              "merit_per_tick": [float(k["sol"].performance.merit[0]) for k in ticks],
+              "states": states.tolist(),
+              "resolved_ticks": [
+                  {"inputs": host_tree(k["inputs"]), "kernel": solve_summary(k["sol"]),
+                   "single_sweep": solve_summary(single)} for k, single in zip(ticks, singles)]}
+    return rec, record
+
+
+def comkino_perceptive_closed_loop(torch, riccati_cuda, at_loop, comkino_out=None):
+    """tests/test_comkino.py:333 on the card: the ComKino model in the
+    segmented-planes problem, ``Mpc`` with the ``PerceptiveReferenceManager`` in
+    ``MpcMrtInterface``, ``dummy_loop`` for 1 s at 50 Hz control and 12.5 Hz MPC
+    (13 ticks, 50 control steps).  Each tick's sweep is the kernel at
+    (1, 32, 24, 12) with strict pivots, one launch per SQP iteration."""
+    from ocs2_tpu_torch.models.legged_robot import model
+    from ocs2_tpu_torch.models.legged_robot.foothold_planner import (
+        PerceptiveReferenceManager,
+        make_perceptive_params,
+        make_segmented_perceptive_problem,
+    )
+    from ocs2_tpu_torch.models.legged_robot.gait import GaitSchedule, trot_gait
+    from ocs2_tpu_torch.models.legged_robot.segmented_planes import decompose_planes
+    from ocs2_tpu_torch.mpc.mpc import Mpc, MpcSettings
+    from ocs2_tpu_torch.mpc.mrt import MpcMrtInterface, dummy_loop
+    from ocs2_tpu_torch.solvers import sqp
+
+    em = stepped_map(PERC_STEP_X, LOOP_STEP_H)
+    terr = decompose_planes(em, device=DEVICE)
+    x0 = model.default_state(DEVICE)
+    target = target_between([0.0, 4.0], {0: 0.4},
+                            {0: 0.4, 6: 1.6, 8: model.STAND_HEIGHT + LOOP_STEP_H})
+    rm = PerceptiveReferenceManager(terr, em, GaitSchedule(trot_gait(0.7)), target=target,
+                                    device=DEVICE)
+    mpc = Mpc(make_segmented_perceptive_problem(model_type="comkino", device=DEVICE),
+              make_perceptive_params(trot_grid(CK_HORIZON, CK_N), terr, em, x0, target,
+                                     device=DEVICE),
+              MpcSettings(time_horizon=CK_HORIZON, num_intervals=CK_N, solver="sqp"),
+              solver_settings=sqp.SqpSettings(max_iterations=CK_MAX_ITERATIONS,
+                                              integrator="rk2"),
+              reference_manager=rm, device=DEVICE)
+    iface = MpcMrtInterface(mpc)
+    ticks, step_s, last = [], [], {"count": 0, "t": None}
+
+    def observe(t, x, u):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if mpc.solve_timer.count != last["count"]:  # an MPC tick ran before this step
+            last["count"] = mpc.solve_timer.count
+            ticks.append({"solve_s": mpc.solve_timer.last, "tick_s": mpc.tick_timer.last,
+                          "plan_s": rm.plan_timer.last,
+                          "iterations": int(mpc.last_solution.iterations[0]),
+                          "converged": bool(mpc.last_solution.converged[0]),
+                          "inputs": mpc.last_solve_inputs, "sol": mpc.last_solution})
+        elif last["t"] is not None:
+            step_s.append(now - last["t"])
+        last["t"] = now
+
+    torch.cuda.synchronize()
+    riccati_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
+    t0 = time.perf_counter()
+    _, states, inputs = dummy_loop(iface, x0, duration=CK_DURATION, mrt_frequency=CK_MRT_HZ,
+                                   mpc_frequency=CK_MPC_HZ, observers=[observe])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+
+    ratio = int(round(CK_MRT_HZ / CK_MPC_HZ))
+    n_steps = int(round(CK_DURATION * CK_MRT_HZ))
+    n_ticks = -(-n_steps // ratio)
+    assert len(ticks) == n_ticks and states.shape == (n_steps + 1, 24), (len(ticks), states.shape)
+    assert bool(torch.isfinite(states).all()) and bool(torch.isfinite(inputs).all())
+    its = [k["iterations"] for k in ticks]
+    assert launches == sum(its) and launches > 0, (launches, its)
+    assert dims == (1, CK_N, 24, 12), dims
+    final_x = float(states[-1, 6])
+    worst_attitude = float(states[:, 9:12].abs().max())
+    assert final_x > CK_MIN_X, f"the base reached x = {final_x} m, not past {CK_MIN_X}"
+    assert worst_attitude < CK_MAX_ATTITUDE, f"|attitude| reached {worst_attitude} rad"
     record = {"iterations_per_tick": its,
               "merit_per_tick": [float(k["sol"].performance.merit[0]) for k in ticks],
               "states": states.tolist()}
-    return rec, record
+    if comkino_out:  # written before the re-solve, which may fail
+        with open(comkino_out, "w") as f:
+            json.dump(record, f)
+
+    def solve(**kw):
+        inp = dict(kw)
+        return sqp.solve(mpc.problem, inp.pop("grid"), inp.pop("x0"), inp.pop("params"),
+                         settings=mpc.solver_settings, device=DEVICE, **inp)
+
+    err, ties, singles = resolve_single(
+        torch, riccati_cuda, [(k["sol"], k["inputs"]) for k in ticks[:RESOLVED_TICKS]], solve,
+        "comkino_perceptive_closed_loop", force_atol=CK_FORCE_ATOL, joint_atol=CK_JOINT_ATOL)
+    if comkino_out:  # the re-solved ticks' solver arguments and both routes' results
+        record["resolved_ticks"] = [
+            {"inputs": host_tree(k["inputs"]), "kernel": solve_summary(k["sol"]),
+             "single_sweep": solve_summary(single)} for k, single in zip(ticks, singles)]
+        with open(comkino_out, "w") as f:
+            json.dump(record, f)
+    solve_ms = [1e3 * k["solve_s"] for k in ticks]
+    host_ms = [1e3 * (k["tick_s"] - k["solve_s"]) for k in ticks]
+    plan_ms = [1e3 * k["plan_s"] for k in ticks]
+    rec = {
+        "phase": "comkino_perceptive_closed_loop", "model": "comkino", "B": 1, "N": CK_N,
+        "nx": 24, "nu": 24, "reduced_nu": 12, "max_iterations": CK_MAX_ITERATIONS,
+        "duration_s": CK_DURATION, "mrt_frequency": CK_MRT_HZ, "mpc_frequency": CK_MPC_HZ,
+        "ticks": len(ticks), "control_steps": n_steps, "loop_seconds": loop_s,
+        "segments": int(terr.valid.sum()),
+        "mpc_tick_ms_median": statistics.median(solve_ms), "mpc_tick_ms_worst": max(solve_ms),
+        "mpc_tick_host_ms_median": statistics.median(host_ms),
+        "mpc_tick_host_ms_worst": max(host_ms),
+        "planner_ms_median": statistics.median(plan_ms), "planner_ms_worst": max(plan_ms),
+        "mrt_step_ms_median": 1e3 * statistics.median(step_s),
+        "mrt_step_ms_worst": 1e3 * max(step_s),
+        "iterations_per_tick": its, "converged_per_tick": [k["converged"] for k in ticks],
+        "spread_warm_starts": mpc.spread_count, "final_base_x": final_x,
+        "max_abs_attitude": worst_attitude,
+        "riccati_launches": launches, "kernel_dims": list(dims),
+        "kernel_share_of_tick": launches / len(ticks) * at_loop["kernel_ms"]
+        / statistics.median(solve_ms),
+        "kernel_vs_single_sweep_solve_max_abs_err": err, "kernel_vs_single_sweep_ties": ties,
+    }
+    emit(rec)
+    return rec
+
+
+def comkino_trot_setup(torch):
+    """tests/test_comkino.py:85's solve: the flagship problem on the ComKino
+    model, trot over 1 s at N = 40, 8 iterations, from the default state and
+    the weight-compensating input."""
+    from ocs2_tpu_torch.models.legged_robot import interface, model
+    from ocs2_tpu_torch.solvers import sqp
+
+    grid = trot_grid(CK_TROT_HORIZON, CK_TROT_N)
+    u0 = model.weight_compensating_input(np.ones(4, np.float32), DEVICE)
+    return {
+        "problem": interface.make_problem(model_type="comkino", device=DEVICE), "grid": grid,
+        "params": interface.make_params(grid, device=DEVICE), "x0": model.default_state(DEVICE),
+        "us_init": u0[None].expand(CK_TROT_N, model.NU).contiguous(),
+        "settings": sqp.SqpSettings(max_iterations=CK_TROT_ITERATIONS),
+    }
+
+
+def comkino_trot(torch, riccati_cuda, cfg, at_trot, solves=3):
+    """One cold ComKino SQP solve (a warm-up, then ``solves`` timed), its sweep
+    the kernel at (1, 40, 24, 12) with strict pivots; the cold solve once more
+    through the single-scenario sweep."""
+    from ocs2_tpu_torch.models.legged_robot import model
+
+    legged_solve(cfg, cfg["x0"], cfg["us_init"])  # warm-up
+    torch.cuda.synchronize()
+    riccati_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
+    seconds, sols = [], []
+    for _ in range(solves):
+        t0 = time.perf_counter()
+        sols.append(legged_solve(cfg, cfg["x0"], cfg["us_init"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    its = [int(s.iterations[0]) for s in sols]
+    assert launches == sum(its) and launches > 0, (launches, its)
+    assert dims == (1, CK_TROT_N, 24, 12), dims
+    sol = sols[-1]
+    assert bool(torch.isfinite(sol.xs).all()) and bool(torch.isfinite(sol.us).all())
+    defect = float(sol.performance.dynamics_violation_sse[0])
+    height = float((sol.xs[0, :, 8] - model.STAND_HEIGHT).abs().max())
+    assert defect < CK_TROT_MAX_DEFECT, f"dynamics_violation_sse {defect}"
+    assert height < CK_TROT_HEIGHT_TOL, f"base height {height} m from stand height"
+    single = legged_solve(cfg, cfg["x0"], cfg["us_init"], force_single_riccati=True)
+    torch.cuda.synchronize()
+    assert riccati_cuda.launch_count == launches, "the single-sweep route launches no kernel"
+    err_single = compare_solves(torch, sol, single, "comkino trot kernel vs single sweep")
+    sec = statistics.median(seconds)
+    rec = {
+        "phase": "comkino_trot", "model": "comkino", "B": 1, "N": CK_TROT_N, "nx": 24, "nu": 24,
+        "reduced_nu": 12, "max_iterations": CK_TROT_ITERATIONS, "solves_timed": solves,
+        "iterations": its[-1], "converged": bool(sol.converged[0]),
+        "seconds_per_solve": sec, "seconds_per_iteration": sec / its[-1],
+        "dynamics_violation_sse": defect, "base_height_max_abs_dev": height,
+        "equality_constraints_sse": float(sol.performance.equality_constraints_sse[0]),
+        "merit": float(sol.performance.merit[0]),
+        "riccati_launches": launches, "kernel_dims": list(dims),
+        "kernel_share_of_solve": its[-1] * 1e-3 * at_trot["kernel_ms"] / sec,
+        "kernel_vs_single_sweep_solve_max_abs_err": err_single,
+    }
+    emit(rec)
+    return rec
 
 
 def terrain_check(torch):
@@ -1456,6 +1702,9 @@ def main() -> int:
     ap.add_argument("--perceptive-out", metavar="PATH",
                     help="write both perceptive phases' iterations per tick and states as "
                          "JSON (for tools/perceptive_reference.py)")
+    ap.add_argument("--comkino-out", metavar="PATH",
+                    help="write the ComKino closed loop's iterations, merits per tick and "
+                         "states as JSON (for tools/comkino_reference.py --compare)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1479,7 +1728,8 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     emit({"phase": "kernels", "kernels": ["riccati_backward"],
-          "shapes": [list(s) for s in KERNEL_SHAPES + [STRICT_SHAPE, PERC_SHAPE, LOOP_SHAPE]]})
+          "shapes": [list(s) for s in KERNEL_SHAPES + [STRICT_SHAPE, PERC_SHAPE, LOOP_SHAPE,
+                                                       CK_TROT_SHAPE]]})
     checks = [
         check_kernel(torch, riccati, riccati_cuda, shape, seed=11 + i, timed=i < 3)
         for i, shape in enumerate(KERNEL_SHAPES)
@@ -1489,6 +1739,9 @@ def main() -> int:
     # The perceptive lanes' strict shapes: the MPC at N = 46, the closed loop at 32.
     at_perc = check_kernel(torch, riccati, riccati_cuda, PERC_SHAPE, seed=23, timed=True)
     at_loop = check_kernel(torch, riccati, riccati_cuda, LOOP_SHAPE, seed=24, timed=True)
+    # The ComKino trot solve's shape (the ComKino closed loop runs at LOOP_SHAPE).
+    at_trot = check_kernel(torch, riccati, riccati_cuda, CK_TROT_SHAPE, seed=25, timed=True)
+    check_strict_nan(torch, riccati, CK_TROT_SHAPE, seed=26, node=17)
     if args.skip_main_path:
         return 0
 
@@ -1505,12 +1758,16 @@ def main() -> int:
     if args.perceptive_out:
         with open(args.perceptive_out, "w") as f:
             json.dump({"perceptive_mpc": perc_record, "perceptive_closed_loop": loop_record}, f)
+    ck_loop = comkino_perceptive_closed_loop(torch, riccati_cuda, at_loop, args.comkino_out)
+    ck_cfg = comkino_trot_setup(torch)
+    ck_trot = comkino_trot(torch, riccati_cuda, ck_cfg, at_trot)
     if args.profile:
         profile_main_path(torch)
         profile_legged(torch, cfg, LEGGED_BATCH)
         profile_legged(torch, cfg, 1)
         profile_mpc(torch, iface)
         profile_perceptive(torch, perc_cfg)
+        profile_legged(torch, ck_cfg, 1, path="comkino_sqp_b1")
 
     at_main, at_quad, at_legged = checks[0], checks[1], checks[2]
     shape_keys = ("nx", "nu", "B", "N", "pivots", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
@@ -1520,8 +1777,9 @@ def main() -> int:
         "name": "riccati_backward", "route": "cuda",
         "source": "ocs2_tpu_torch/csrc/riccati_backward.cu",
         "replaces": "ocs2_tpu/ops/riccati_pallas.py:189",
-        "launches": sum(r["riccati_launches"] for r in (run, b1, b256, closed, quad, perc, loop)),
-        "max_abs_err": max(c["max_abs_err"] for c in checks + [at_b1, at_perc, at_loop]),
+        "launches": sum(r["riccati_launches"]
+                        for r in (run, b1, b256, closed, quad, perc, loop, ck_loop, ck_trot)),
+        "max_abs_err": max(c["max_abs_err"] for c in checks + [at_b1, at_perc, at_loop, at_trot]),
         "shape": dict(zip(("nx", "nu", "B", "N"), MAIN_SHAPE)),
         "ms": at_main["kernel_ms"], "plain_ms": at_main["plain_ms"],
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
@@ -1560,6 +1818,16 @@ def main() -> int:
              "share_of_tick": loop["kernel_share_of_tick"],
              "single_sweep_ms": at_loop["single_sweep_ms"],
              **{k: at_loop[k] for k in shape_keys}},
+            {"path": "comkino_perceptive_closed_loop", "launches": ck_loop["riccati_launches"],
+             "launches_per_tick": ck_loop["riccati_launches"] / ck_loop["ticks"],
+             "share_of_tick": ck_loop["kernel_share_of_tick"],
+             "single_sweep_ms": at_loop["single_sweep_ms"],
+             **{k: at_loop[k] for k in shape_keys}},
+            {"path": "comkino_trot", "launches": ck_trot["riccati_launches"],
+             "launches_per_solve": ck_trot["riccati_launches"] / ck_trot["solves_timed"],
+             "share_of_solve": ck_trot["kernel_share_of_solve"],
+             "single_sweep_ms": at_trot["single_sweep_ms"],
+             **{k: at_trot[k] for k in shape_keys}},
         ],
     }]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -17,7 +17,9 @@ import torch
 from .core.controllers import LinearController
 from .core.reference import ModeSchedule, TargetTrajectories
 from .core.types import PerformanceIndex
+from .models.legged_robot.centroidal import MassModel
 from .models.legged_robot.foothold_planner import FootholdPlan
+from .models.legged_robot.motions import Motion
 from .models.legged_robot.segmented_planes import SegmentedPlanesTerrain
 from .models.legged_robot.terrain import ElevationMap
 from .models.perceptive import SignedDistanceField
@@ -159,3 +161,18 @@ def segmented_planes_terrain_from_numpy(rec: Any, device="cuda") -> SegmentedPla
         name: torch.as_tensor(np.array(_field(rec, name), dtype=dtypes.get(name, np.float32)),
                               device=device)
         for name in SegmentedPlanesTerrain._fields})
+
+
+def mass_model_from_numpy(rec: Any) -> MassModel:
+    """A ``MassModel`` crosses as its three floats (hip, thigh, shank)."""
+    return MassModel(*(float(_field(rec, name)) for name in MassModel._fields))
+
+
+def motion_from_numpy(rec: Any, device="cuda") -> Motion:
+    """A ``Motion`` of the JAX package (its target's leaves and its mode
+    schedule as numpy): the target on ``device``, the schedule on the host."""
+    return Motion(
+        target=target_trajectories_from_numpy(_field(rec, "target"), device),
+        mode_schedule=mode_schedule_from_numpy(_field(rec, "mode_schedule")),
+        duration=float(_field(rec, "duration")),
+    )

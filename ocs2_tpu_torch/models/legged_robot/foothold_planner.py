@@ -531,7 +531,7 @@ def make_segmented_perceptive_problem(
     settings: FootholdPlannerSettings = FootholdPlannerSettings(),
     polygon_weight: float = 2000.0,
     swing_tracking_weight: float = 200.0,
-    model_type: str = "srbd",
+    model_type: str = "srbd",  # "srbd" | "comkino"
     motion_tracking: bool = False,  # add the motion-tracking cost
     torque_limits: bool = False,  # add the soft torque limits
     collision_avoidance: bool = False,  # add the knee collision-avoidance cost
@@ -540,15 +540,10 @@ def make_segmented_perceptive_problem(
     """The segmented-planes perceptive OCP: base tracking, the merged foot
     contact constraint, the plan's friction cone, soft swing tracking and
     the foothold polygon penalty."""
-    from .interface import Q_DIAG, R_MAT
+    from .interface import Q_DIAG, R_MAT, select_dynamics
 
-    if model_type != "srbd":
-        raise NotImplementedError(
-            f"model_type={model_type!r}: the kinodynamic model (comkino.py) belongs "
-            "to a later slice of the port; only 'srbd' is available"
-        )
     problem = OptimalControlProblem(
-        dynamics=model.dynamics,
+        dynamics=select_dynamics(model_type),
         cost_terms=(
             quadratic_cost(np.diag(Q_DIAG), R_MAT, device=device),
             soft_constraint(plan_friction_cone(), pen.relaxed_barrier(mu=0.1, delta=5.0)),

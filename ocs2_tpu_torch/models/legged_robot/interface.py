@@ -84,20 +84,31 @@ R_MAT = _input_cost_weight()
 _swing_velocity_soft = soft_constraint(con.swing_normal_velocity, pen.quadratic(100.0))
 
 
+def select_dynamics(model_type: str):
+    """The flow map of ``model_type``: "srbd" (``model.dynamics``), "full"
+    (``centroidal.dynamics_full``) or "comkino" (``comkino.dynamics``, the
+    full kinodynamic model)."""
+    if model_type == "full":
+        from .centroidal import dynamics_full
+
+        return dynamics_full
+    if model_type == "comkino":
+        from .comkino import dynamics
+
+        return dynamics
+    if model_type != "srbd":
+        raise ValueError(f"model_type={model_type!r}: 'srbd', 'full' or 'comkino'")
+    return model.dynamics
+
+
 def make_problem(
     friction_cone: str = "soft",  # "soft" (relaxed barrier) | "hard" (AL)
     project_foot_constraint: bool = True,
-    model_type: str = "srbd",
+    model_type: str = "srbd",  # "srbd" | "full" | "comkino"
     device="cuda",
 ) -> OptimalControlProblem:
-    if model_type != "srbd":
-        raise NotImplementedError(
-            f"model_type={model_type!r}: the full centroidal and the "
-            "kinodynamic models (centroidal.py, comkino.py) belong to a later "
-            "slice of the port; only 'srbd' is available"
-        )
     problem = OptimalControlProblem(
-        dynamics=model.dynamics,
+        dynamics=select_dynamics(model_type),
         cost_terms=(quadratic_cost(np.diag(Q_DIAG), R_MAT, device=device),),
         final_cost_terms=(
             quadratic_final_cost(10.0 * np.diag(Q_DIAG[:24]), device=device),

@@ -31,7 +31,7 @@ def cholesky_small(M: Tensor, eps: float = 1e-12):
             s = s - L[j][k] * L[j][k]
         d = torch.sqrt(torch.clamp(s, min=eps))
         L[j][j] = d
-        inv_d = 1.0 / d
+        inv_d = torch.reciprocal(d)  # not 1.0 / d: a 0-dim dual times a Python float is float64
         for i in range(j + 1, n):
             s = M[..., i, j]
             for k in range(j):

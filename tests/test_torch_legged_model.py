@@ -369,5 +369,12 @@ def test_legged_trajectory_metrics_match_jax(friction, project):
 
 @pytest.mark.parametrize("model_type", ["full", "comkino"])
 def test_unported_model_types_raise(model_type):
-    with pytest.raises(NotImplementedError, match="slice"):
-        interface.make_problem(model_type=model_type, device="cpu")
+    """The full centroidal and the ComKino model build the flagship problem
+    with their own flow map; a model type that names no model raises."""
+    from ocs2_tpu_torch.models.legged_robot import centroidal, comkino
+
+    problem = interface.make_problem(model_type=model_type, device="cpu")
+    expected = {"full": centroidal.dynamics_full, "comkino": comkino.dynamics}[model_type]
+    assert problem.dynamics is expected
+    with pytest.raises(ValueError, match="model_type"):
+        interface.make_problem(model_type=model_type + "_x", device="cpu")

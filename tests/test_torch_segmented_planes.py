@@ -363,8 +363,14 @@ def test_make_perceptive_params_matches():
 
 
 def test_comkino_model_type_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice"):
-        fp.make_segmented_perceptive_problem(model_type="comkino", device="cpu")
+    """The segmented problem on the ComKino model carries the kinodynamic
+    flow map; an unknown model type raises."""
+    from ocs2_tpu_torch.models.legged_robot import comkino
+
+    problem = fp.make_segmented_perceptive_problem(model_type="comkino", device="cpu")
+    assert problem.dynamics is comkino.dynamics
+    with pytest.raises(ValueError, match="model_type"):
+        fp.make_segmented_perceptive_problem(model_type="kino", device="cpu")
 
 
 # -- the in-solver terms through approximate_lq and evaluate_trajectory --------------
