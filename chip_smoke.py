@@ -16,8 +16,8 @@ main paths and checks that they went through the kernels:
   both is the CUDA kernel at (nx, nu) = (24, 12), with strict pivots at B = 1;
 * the MPC runtime in closed loop: ``Mpc`` (the same legged SQP at N = 100,
   ``SwitchedModelReferenceManager`` on a 0.7 s trot) in ``MpcMrtInterface``,
-  driven by ``dummy_loop`` for 0.5 s at 400 Hz control and 50 Hz MPC (25
-  ticks, 200 control steps); each tick's sweep is the kernel at
+  driven by ``dummy_loop`` for 0.3 s at 400 Hz control and 50 Hz MPC (15
+  ticks, 120 control steps); each tick's sweep is the kernel at
   (1, 100, 24, 12) with strict pivots, one launch per SQP iteration;
 * ``sqp.solve`` on the quadrotor (nx = 12, nu = 4), a batch of 4096 hover
   scenarios, 40 intervals over 2 s, rk4, 8 iterations at most; the sweep is
@@ -34,7 +34,20 @@ main paths and checks that they went through the kernels:
   (``Mpc`` with the ``PerceptiveReferenceManager`` on the segmented problem of
   the ComKino model, N = 32, 1 s at 50 Hz control and 12.5 Hz MPC) and
   ``comkino_trot`` (one cold trot solve at N = 40, 8 iterations); the sweep of
-  both is the kernel at (24, 12) with strict pivots.
+  both is the kernel at (24, 12) with strict pivots;
+* the interior-point solver on the flagship problem with the hard friction
+  cone (the barrier's inequality; the foot constraint projected, N = 100,
+  15 iterations at most): ``legged_ipm_tick_b1`` (a cold solve from the
+  weight-compensating guess, then 2 chains of 6 receding-horizon ticks; the
+  kernel at (1, 100, 24, 12) with strict pivots, one launch per IPM
+  iteration) and ``legged_ipm_b256`` (the b256 lane's scenarios; the kernel
+  at (256, 100, 24, 12), clamped), each held against the sweep's torch-op
+  routes;
+* SLP (``slp.solve``: SQP with the PIPG inner solver, ``ops/pipg.py``) on the
+  ballbot problem for 256 of the main path's scenarios, held against the JAX
+  package's SLP on them (a record in ``tests/torch_data/``), ``sqp.solve``
+  beside it (the kernel at (256, 32, 10, 3)), and the torch launches of one
+  PIPG iteration counted by the profiler.
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when there
@@ -49,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -579,9 +593,11 @@ def legged_tick_b256(torch, riccati_cuda, cfg, cold_b1, solves=3):
 
 # -- the MPC runtime in closed loop ----------------------------------------------
 
-MPC_DURATION, MRT_HZ, MPC_HZ = 0.5, 400.0, 50.0
+# 0.3 s (15 ticks; 0.5 s until the IPM and SLP phases took the script past its
+# time target, PERF.md §4).
+MPC_DURATION, MRT_HZ, MPC_HZ = 0.3, 400.0, 50.0
 # The base may leave its stand height by this much over the loop: the JAX
-# package's own loop on these inputs rises 0.061 m in the 0.5 s
+# package's own loop on these inputs rises 0.061 m in 0.5 s
 # (tools/legged_closed_loop_reference.py); 0.08 m is the bound its legged
 # trot tests hold (tests/test_centroidal.py).
 HEIGHT_TOL = 0.08
@@ -625,7 +641,7 @@ def policy_foot_constraint(torch, mpc, inputs, sol):
 
 
 def legged_mpc_closed_loop(torch, riccati_cuda, closed_loop_out=None):
-    """``dummy_loop`` over the legged MPC: 25 ticks at N = 100 and 200 control
+    """``dummy_loop`` over the legged MPC: 15 ticks at N = 100 and 120 control
     steps.  Per tick: the solve (``solve_timer``), the host work of
     ``Mpc.run`` outside it (``tick_timer`` - ``solve_timer``), the SQP
     iterations, whether the warm start was spread.  Per control step: the
@@ -1412,6 +1428,340 @@ def comkino_trot(torch, riccati_cuda, cfg, at_trot, solves=3):
     return rec
 
 
+# -- the interior-point solver on the legged robot, and SLP -------------------------
+
+# The flagship tick under IPM (the reference's LeggedRobotIpmMpcNode): the hard
+# friction cone is the barrier's inequality, the foot constraint is projected;
+# 15 iterations at most (IpmSettings' default).  The chains start from the
+# weight-compensating guess: from zero inputs the reference's IPM fails
+# (ROADMAP.md §3).
+IPM_MAX_ITERATIONS = 15
+IPM_TICKS_PER_CHAIN = 6
+# IPM stops when the total violation, which includes the slack gap |h - s|,
+# falls below constraint_tol = 1e-4.  On flat ground the stance slacks sit
+# near 92, where float32 rounds h and s to 5.5e-6 each: over the ~300 stance
+# rows the gap's rounding floor is about 1e-4 itself, and the last two
+# iterations' violations land at 0.75-1.07 of the tolerance (CPU, B = 32).
+# So two routes of the sweep may stop one iteration apart at equal merit
+# (the extra iteration moves it by 5e-7): ties, held to equal merit within
+# 1e-6 and xs within SOLVE_ATOL by compare_with_ties, at most this share
+# (107 of 256 scenarios on the first card run, PERF.md §6).
+IPM_MAX_TIED_SHARE = 0.75
+# The SLP phase: main_path's ballbot problem (rk4) for its first 256 seeded
+# initial states; its SQP run sweeps with the kernel at this shape.  SLP is
+# held against the JAX package's SLP on the same scenarios
+# (tools/slp_reference.py --record): the reference's own SLP stops 0.026-2.2
+# from its SQP in the inputs on this problem (dynamics SSE to 3.4e-3), far
+# outside tests/test_pipg.py's bound for the linear double integrator.
+SLP_BATCH = 256
+SLP_SHAPE = (10, 3, SLP_BATCH, 32)
+SLP_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_data",
+                          "slp_ballbot_reference.npz")
+SLP_MERIT_RTOL = 1e-5
+
+
+def legged_ipm_setup(cfg):
+    from ocs2_tpu_torch.models.legged_robot import interface
+    from ocs2_tpu_torch.solvers import ipm
+
+    return dict(cfg, problem=interface.make_problem(friction_cone="hard", device=DEVICE),
+                settings=ipm.IpmSettings(max_iterations=IPM_MAX_ITERATIONS, integrator="rk2"))
+
+
+def ipm_solve(cfg, x0, us_init, **kw):
+    from ocs2_tpu_torch.solvers import ipm
+
+    return ipm.solve(cfg["problem"], cfg["grid"], x0, cfg["params"], us_init=us_init,
+                     settings=cfg["settings"], device=DEVICE, **kw)
+
+
+def stance_slacks(torch, cfg, sol):
+    """The cone's slacks of the legs in stance [B, stance entries] (a swing
+    row holds the constant 1.0)."""
+    from ocs2_tpu_torch.models.legged_robot.gait import contact_flags
+
+    stance = contact_flags(cfg["grid"].device(DEVICE).modes[:-1]) > 0.5  # [N, 4]
+    return sol.ipm.slack_ineq[:, stance]
+
+
+def check_ipm_solution(torch, cfg, sol, what):
+    """Finite trajectories, at least one iteration, interior slacks and duals,
+    and the projected foot constraint at every node.  Returns (worst foot
+    constraint, smallest stance slack per scenario)."""
+    from ocs2_tpu_torch.models.legged_robot import constraints
+    from ocs2_tpu_torch.oc.approx import node_params
+
+    assert bool(torch.isfinite(sol.xs).all()) and bool(torch.isfinite(sol.us).all()), what
+    assert int(sol.iterations.min()) >= 1, what
+    assert bool((sol.ipm.slack_ineq > 0).all()) and bool((sol.ipm.dual_ineq > 0).all()), what
+    grid = cfg["grid"].device(DEVICE)
+    nodes = torch.arange(LEGGED_N, device=DEVICE)
+    g = constraints.foot_constraint(
+        grid.times[:-1], sol.xs[:, :-1], sol.us, node_params(cfg["params"], grid, nodes))
+    worst = float(g.abs().max())
+    assert worst <= 1e-3, f"{what}: |foot_constraint| = {worst}"
+    return worst, stance_slacks(torch, cfg, sol).amin(dim=1)
+
+
+def legged_ipm_tick_b1(torch, riccati_cuda, cfg, chains=2, ticks_per_chain=IPM_TICKS_PER_CHAIN,
+                       ipm_out=None):
+    """The slice's main path: ``ipm.solve`` at B = 1, N = 100, as chains of
+    dependent receding-horizon ticks (each starts at the solved xs[1],
+    warm-started with the solved inputs), after a cold solve from the
+    weight-compensating guess that is also the warm-up.  The sweep is the
+    kernel with strict pivots, one launch per IPM iteration."""
+    riccati_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
+    t0 = time.perf_counter()
+    cold = ipm_solve(cfg, cfg["x0"], cfg["us_init"])
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    worst_g, cold_slack = check_ipm_solution(torch, cfg, cold, "ipm b1 cold solve")
+
+    x, us = cfg["x0"], cfg["us_init"]
+    chain_s, ticks, starts = [], [], []
+    for _ in range(chains):
+        sols = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks_per_chain):
+            starts.append(x)
+            sol = ipm_solve(cfg, x, us)
+            x, us = sol.xs[0, 1], sol.us[0]
+            sols.append(sol)
+        torch.cuda.synchronize()
+        chain_s.append(time.perf_counter() - t0)
+        ticks += sols
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    slack_min = []
+    for i, sol in enumerate(ticks):
+        g, s = check_ipm_solution(torch, cfg, sol, f"ipm b1 tick {i}")
+        worst_g = max(worst_g, g)
+        slack_min.append(float(s[0]))
+    sweeps_run = int(cold.iterations[0]) + sum(int(s.iterations[0]) for s in ticks)
+    assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
+    assert dims == (1, LEGGED_N, 24, 12), dims
+    # The cold solve once more through the single-scenario sweep of torch ops.
+    single = ipm_solve(cfg, cfg["x0"], cfg["us_init"], force_single_riccati=True)
+    torch.cuda.synchronize()
+    assert riccati_cuda.launch_count == launches, "the single-sweep route launches no kernel"
+    err_single, tied_single, _ = compare_with_ties(
+        torch, cold, single, "ipm b1 kernel vs single sweep", max_tied_share=1.0)
+    per_tick_ms = [1e3 * s / ticks_per_chain for s in chain_s]
+    if ipm_out:
+        with open(ipm_out, "w") as f:
+            json.dump({"N": LEGGED_N, "max_iterations": IPM_MAX_ITERATIONS,
+                       "chains": chains, "ticks_per_chain": ticks_per_chain,
+                       "cold": {"iterations": int(cold.iterations[0]),
+                                "merit": float(cold.performance.merit[0]),
+                                "xs": cold.xs[0].tolist(), "us": cold.us[0].tolist()},
+                       "tick_states": [s.tolist() for s in starts],
+                       "iterations_per_tick": [int(s.iterations[0]) for s in ticks],
+                       "merit_per_tick": [float(s.performance.merit[0]) for s in ticks],
+                       "final_state": x.tolist()}, f)
+    last = ticks[-1].performance
+    rec = {
+        "phase": "legged_ipm_tick_b1", "solver": "ipm", "friction_cone": "hard", "B": 1,
+        "N": LEGGED_N, "nx": 24, "nu": 24, "max_iterations": IPM_MAX_ITERATIONS,
+        "chains": chains, "ticks_per_chain": ticks_per_chain,
+        "tick_ms_median": statistics.median(per_tick_ms), "tick_ms_worst": max(per_tick_ms),
+        "ticks_per_s": 1e3 / statistics.median(per_tick_ms),
+        "cold_solve_ms_first_call": 1e3 * cold_s,
+        "cold_solve_iterations": int(cold.iterations[0]),
+        "cold_solve_converged": bool(cold.converged[0]),
+        "cold_solve_min_stance_slack": float(cold_slack[0]),
+        "iterations_per_tick": [int(s.iterations[0]) for s in ticks],
+        "converged_per_tick": [bool(s.converged[0]) for s in ticks],
+        "min_stance_slack_per_tick": slack_min,
+        "final_mu_per_tick": [float(s.ipm.mu[0]) for s in ticks],
+        "max_dual": max(float(s.ipm.dual_ineq.max()) for s in ticks),
+        "dynamics_violation_sse": float(last.dynamics_violation_sse[0]),
+        "worst_abs_foot_constraint": worst_g, "riccati_launches": launches,
+        "kernel_dims": list(dims), "kernel_vs_single_sweep_solve_max_abs_err": err_single,
+        "kernel_vs_single_sweep_iterations": [int(cold.iterations[0]),
+                                              int(single.iterations[0])],
+        "kernel_vs_single_sweep_tied": bool(tied_single),
+    }
+    emit(rec)
+    return rec
+
+
+def legged_ipm_b256(torch, riccati_cuda, cfg, solves=1):
+    """``ipm.solve`` on legged_tick_b256's 256 perturbed initial states and
+    shared warm start; the sweep is the kernel at (24, 12, 256, 100) with
+    clamped pivots.  The same solve through the plain version is held
+    against it.  The spread of iterations and of the final mu is per
+    scenario: a reduction over the batch where one over a scenario's nodes
+    belongs would show as a spread of one."""
+    batch, nx = LEGGED_BATCH, 24
+    i = torch.arange(batch, dtype=torch.float32, device=DEVICE)[:, None]
+    j = torch.arange(nx, dtype=torch.float32, device=DEVICE)[None, :]
+    x0s = cfg["x0"][None] + 1e-3 * torch.sin(i * j)
+
+    def solve(**kw):
+        sol = ipm_solve(cfg, x0s, cfg["us_init"], **kw)
+        torch.cuda.synchronize()
+        return sol
+
+    solve()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    riccati_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
+    seconds, sols = [], []
+    for _ in range(solves):
+        t0 = time.perf_counter()
+        sols.append(solve())
+        seconds.append(time.perf_counter() - t0)
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    sol = sols[-1]
+    sweeps_run = sum(int(s.iterations.max()) for s in sols)
+    assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
+    assert dims == (batch, LEGGED_N, 24, 12), dims
+    worst_g, slack = check_ipm_solution(torch, cfg, sol, "ipm b256")
+    plain = solve(force_plain_riccati=True)
+    assert riccati_cuda.launch_count == launches, "the plain route launches no kernel"
+    err, tied, tie_details = compare_with_ties(
+        torch, sol, plain, "ipm b256 kernel vs plain", max_tied_share=IPM_MAX_TIED_SHARE)
+
+    sec = statistics.median(seconds)
+    its = sol.iterations.tolist()
+    rec = {
+        "phase": "legged_ipm_b256", "solver": "ipm", "friction_cone": "hard", "B": batch,
+        "N": LEGGED_N, "nx": 24, "nu": 24, "reduced_nu": 12,
+        "max_iterations": IPM_MAX_ITERATIONS, "solves_timed": solves,
+        "seconds_per_solve": sec, "solves_per_s": batch / sec,
+        "iterations_histogram": {str(k): its.count(k) for k in sorted(set(its))},
+        "converged": int(sol.converged.sum()),
+        "final_mu_min": float(sol.ipm.mu.min()), "final_mu_max": float(sol.ipm.mu.max()),
+        "min_stance_slack": float(slack.min()), "max_dual": float(sol.ipm.dual_ineq.max()),
+        "riccati_launches": launches, "launches_per_solve": launches / solves,
+        "kernel_dims": list(dims), "worst_abs_foot_constraint": worst_g,
+        "dynamics_violation_sse_max": float(sol.performance.dynamics_violation_sse.max()),
+        "kernel_vs_plain_solve_max_abs_err": err,
+        "kernel_vs_plain_tied_scenarios": tied, "kernel_vs_plain_ties": tie_details,
+        "peak_device_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+    }
+    emit(rec)
+    return rec
+
+
+def count_launches(torch, fn):
+    """Kernels the card ran in one call of fn: torch.profiler's device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    if device == 0:
+        raise SystemExit("torch.profiler recorded no device event")
+    return device
+
+
+def slp_ballbot_b256(torch, riccati_cuda):
+    """``slp.solve`` (PIPG, SlpSettings' defaults with main_path's rk4) on
+    the ballbot problem for the first 256 of main_path's seeded initial
+    states, held against the JAX package's SLP on the same scenarios
+    (SLP_RECORD): every scenario's inputs within SOLVE_ATOL + SOLVE_RTOL
+    |value| and merit within SLP_MERIT_RTOL.  Iterations are not held: at
+    the stall where SLP ends here, whether a step of 1e-6 is accepted (and
+    the scenario counted converged) is decided by float32 rounding, which
+    leaves the inputs where they were.  ``sqp.solve`` on the same scenarios
+    (the sweep: the kernel at (10, 3, 256, 32), clamped) is timed beside it
+    and its distance printed.  The torch launches of one PIPG iteration are
+    counted by the profiler (the difference of 20 and 10 iterations, over
+    10)."""
+    from ocs2_tpu_torch.models import ballbot
+    from ocs2_tpu_torch.oc.approx import approximate_lq
+    from ocs2_tpu_torch.oc.time_discretization import uniform_grid
+    from ocs2_tpu_torch.ops import pipg, riccati
+    from ocs2_tpu_torch.solvers import slp, sqp
+
+    _, _, batch, n = SLP_SHAPE
+    problem, params = ballbot.make_problem(device=DEVICE), ballbot.make_params(device=DEVICE)
+    grid = uniform_grid(0.0, 1.0, n)
+    rng = np.random.default_rng(0)  # main_path's seed: its first 256 scenarios
+    x0s = torch.as_tensor(
+        (0.1 * rng.standard_normal((4096, ballbot.NX))).astype(np.float32)[:batch], device=DEVICE)
+    slp_st = slp.SlpSettings(integrator="rk4")
+    sqp_st = sqp.SqpSettings(integrator="rk4", max_iterations=slp_st.max_iterations)
+
+    riccati_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
+    t0 = time.perf_counter()
+    ref = sqp.solve(problem, grid, x0s, params, settings=sqp_st, device=DEVICE)
+    torch.cuda.synchronize()
+    sqp_s = time.perf_counter() - t0
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    assert launches == int(ref.iterations.max()) and launches > 0, launches
+    assert dims == (batch, n, ballbot.NX, ballbot.NU), dims
+
+    t0 = time.perf_counter()
+    sol = slp.solve(problem, grid, x0s, params, settings=slp_st, device=DEVICE)
+    torch.cuda.synchronize()
+    slp_s = time.perf_counter() - t0
+    assert riccati_cuda.launch_count == launches, "SLP launches no Riccati kernel"
+    assert bool(torch.isfinite(sol.xs).all()) and bool(torch.isfinite(sol.us).all())
+    assert bool(torch.isnan(sol.value_S).all()) and not bool(sol.gains.any())
+    with np.load(SLP_RECORD) as f:
+        rec_np = {k: f[k] for k in f.files}
+    assert np.array_equal(rec_np["x0s"], x0s.cpu().numpy()), "the record's scenarios differ"
+    rec_us = torch.as_tensor(rec_np["us"], device=DEVICE)
+    rec_merit = torch.as_tensor(rec_np["merit"], device=DEVICE)
+    us_err = float((sol.us - rec_us).abs().max())
+    merit_rel = float(((sol.performance.merit - rec_merit).abs() / rec_merit.abs()).max())
+    assert bool(((sol.us - rec_us).abs() <= SOLVE_ATOL + SOLVE_RTOL * rec_us.abs()).all()), (
+        f"SLP vs the JAX package's: |us| differs by {us_err}")
+    assert merit_rel <= SLP_MERIT_RTOL, f"SLP merit vs the JAX package's: {merit_rel}"
+    defect = float(sol.performance.dynamics_violation_sse.max())
+    vs_sqp = (sol.us - ref.us).abs().amax(dim=(1, 2))
+
+    # One QP of the first SLP iteration, for the PIPG counts and times.
+    xs = x0s[:, None, :].expand(batch, n + 1, ballbot.NX).contiguous()
+    us = torch.zeros((batch, n, ballbot.NU), device=DEVICE)
+    lq = approximate_lq(problem, grid, xs, us, params, method="rk4")
+    qp = riccati.LqrCoeffs(
+        A=lq.dynamics.dfdx, B=lq.dynamics.dfdu, b=lq.dynamics.f - xs[:, 1:],
+        Qxx=lq.cost.dfdxx[:, :-1], qx=lq.cost.dfdx[:, :-1],
+        Quu=lq.cost.dfduu[:, :-1] + slp_st.hessian_reg * torch.eye(ballbot.NU, device=DEVICE),
+        qu=lq.cost.dfdu[:, :-1], Qux=lq.cost.dfdux[:, :-1],
+        Qf=lq.cost.dfdxx[:, -1], qf=lq.cost.dfdx[:, -1])
+    scaled, _ = pipg.ruiz_equilibrate(qp, slp_st.ruiz_iterations)
+    run = lambda k: pipg.pipg_solve(scaled, pipg.PipgSettings(num_iterations=k))  # noqa: E731
+    run(10)
+    d10, d20 = count_launches(torch, lambda: run(10)), count_launches(torch, lambda: run(20))
+    _, qp_ms = timed_stage(torch, lambda: run(slp_st.pipg_iterations), reps=1)
+    _, setup_ms = timed_stage(torch, lambda: run(0), reps=3)
+
+    its = sol.iterations.tolist()
+    rec = {
+        "phase": "slp_ballbot_b256", "problem": "ballbot", "algorithm": "slp", "B": batch,
+        "N": n, "nx": ballbot.NX, "nu": ballbot.NU, "integrator": "rk4",
+        "max_iterations": slp_st.max_iterations, "pipg_iterations_per_qp": slp_st.pipg_iterations,
+        "ruiz_iterations": slp_st.ruiz_iterations,
+        "seconds_per_solve": slp_s, "solves_per_s": batch / slp_s,
+        "sqp_seconds_per_solve": sqp_s,
+        "iterations_histogram": {str(k): its.count(k) for k in sorted(set(its))},
+        "sqp_iterations_max": int(ref.iterations.max()),
+        "converged_share": float(sol.converged.float().mean()),
+        "iterations_equal_to_reference": int((sol.iterations.cpu().numpy()
+                                              == rec_np["iterations"]).sum()),
+        "us_max_abs_diff_vs_reference": us_err, "merit_max_rel_diff_vs_reference": merit_rel,
+        "us_max_abs_diff_vs_sqp": float(vs_sqp.max()),
+        "us_min_abs_diff_vs_sqp": float(vs_sqp.min()),
+        "reference_us_max_abs_diff_vs_its_sqp": float(rec_np["us_max_abs_diff_vs_sqp"].max()),
+        "dynamics_violation_sse_max": defect,
+        "reference_dynamics_violation_sse_max": float(rec_np["dynamics_violation_sse"].max()),
+        "pipg_launches_per_iteration": (d20 - d10) / 10,
+        "pipg_qp_ms": qp_ms, "pipg_iteration_ms": (qp_ms - setup_ms) / slp_st.pipg_iterations,
+        "pipg_setup_ms": setup_ms,
+        "sqp_check_riccati_launches": launches, "kernel_dims": list(dims),
+    }
+    emit(rec)
+    return rec
+
+
 def terrain_check(torch):
     """The elevation-map problem's in-solver gathers and plane fits on the
     card against the same calls on the CPU in this process: approximate_lq
@@ -1539,6 +1889,73 @@ def profile_legged(torch, cfg, batch, path=None):
     emit({"phase": "profile_stages", "path": path, "B": batch, "N": n, "stages": stages})
     x0 = x0s if batch > 1 else cfg["x0"]
     busy = device_busy(torch, lambda: legged_solve(cfg, x0, cfg["us_init"]))
+    emit({"phase": "profile", "path": path, "B": batch, "N": n, "profiler": busy})
+    return stages
+
+
+def profile_ipm(torch, cfg, batch):
+    """Stage times of one IPM iteration of the legged robot with the hard
+    cone at the cold start (host-clock medians, each stage synchronised):
+    the LQ approximation with the cone's rows, the condensation, the
+    projection, the sweep, the forward pass, the slack/dual directions with
+    the fraction-to-boundary rule, and the line search's candidates; and the
+    card's busy share over one whole solve."""
+    import dataclasses
+
+    from ocs2_tpu_torch.oc.approx import approximate_lq, example_params
+    from ocs2_tpu_torch.oc.metrics import evaluate_trajectory
+    from ocs2_tpu_torch.ops import projection, riccati
+    from ocs2_tpu_torch.solvers import ipm, sqp
+    from ocs2_tpu_torch.solvers.al import AlState, augment_problem
+
+    timed = lambda fn: timed_stage(torch, fn)  # noqa: E731
+    problem, grid, params, st = cfg["problem"], cfg["grid"], cfg["params"], cfg["settings"]
+    n, nx, nu = grid.num_intervals, 24, 24
+    i = torch.arange(batch, dtype=torch.float32, device=DEVICE)[:, None]
+    x0s = cfg["x0"][None] + 1e-3 * torch.sin(i * torch.arange(nx, device=DEVICE)[None, :])
+    xs = x0s[:, None, :].expand(batch, n + 1, nx).contiguous()
+    us = cfg["us_init"].expand(batch, n, nu).contiguous()
+    eq_only = dataclasses.replace(problem, inequality_terms=(), state_inequality_terms=())
+    aug = dataclasses.replace(augment_problem(eq_only, project_equalities=True),
+                              inequality_terms=problem.inequality_terms)
+    dims = problem.constraint_dims(example_params(params, DEVICE), device=DEVICE)
+    al = AlState.init(dims, n, st.al_rho_init, batch=(batch,), device=DEVICE)
+    metrics = evaluate_trajectory(problem, grid, xs, us, params)
+    mu = torch.full((batch,), st.mu_init, device=DEVICE)
+    s, v = ipm._init_slack_dual(metrics.h_ineq, mu, st.slack_init_min, None)
+    empty = torch.zeros((batch, n + 1, 0), device=DEVICE)
+    ipm_vars = ipm.IpmVars(s, v, empty, empty, mu)
+
+    stages = {}
+    lq, stages["approximate_lq_ms"] = timed(
+        lambda: approximate_lq(aug, grid, xs, us, dict(params, al=al), method=st.integrator))
+    d, stages["condense_ms"] = timed(lambda: ipm._condense(lq, ipm_vars))
+    coeffs = riccati.LqrCoeffs(
+        A=lq.dynamics.dfdx, B=lq.dynamics.dfdu, b=lq.dynamics.f - xs[:, 1:],
+        Qxx=lq.cost.dfdxx[:, :-1] + d[0], qx=lq.cost.dfdx[:, :-1] + d[1],
+        Quu=lq.cost.dfduu[:, :-1] + d[2] + st.hessian_reg * torch.eye(nu, device=DEVICE),
+        qu=lq.cost.dfdu[:, :-1] + d[3], Qux=lq.cost.dfdux[:, :-1] + d[4],
+        Qf=lq.cost.dfdxx[:, -1] + d[5], qf=lq.cost.dfdx[:, -1] + d[6])
+    (reduced, proj), stages["project_lqr_coeffs_ms"] = timed(
+        lambda: projection.project_lqr_coeffs(coeffs, lq.eq.f, lq.eq.dfdx, lq.eq.dfdu))
+    reduced = riccati.LqrCoeffs(*(leaf.contiguous() for leaf in reduced))
+    reg = torch.zeros((batch,), device=DEVICE)
+    sol, stages["riccati_backward_ms"] = timed(lambda: riccati.lqr_backward(reduced, reg))
+    (dxs, dvs), stages["lqr_forward_ms"] = timed(
+        lambda: riccati.lqr_forward(reduced, sol, torch.zeros((batch, nx), device=DEVICE)))
+    dus = projection.remap_projected_input(proj, dxs[:, :-1], dvs)
+    _, stages["slack_dual_steps_and_ftb_ms"] = timed(lambda: (
+        ipm._ftb_alpha(s, ipm._slack_dual_steps(lq, ipm_vars, dxs, dus)[0], st.ftb_margin)))
+    a4 = (st.alpha_decay ** torch.arange(st.num_alphas, device=DEVICE))[None, :, None, None]
+    xs_c, us_c = xs[:, None] + a4 * dxs[:, None], us[:, None] + a4 * dus[:, None]
+    _, stages["evaluate_candidates_ms"] = timed(
+        lambda: evaluate_trajectory(problem, grid, xs_c, us_c, params))
+    _, stages["candidate_defects_ms"] = timed(
+        lambda: sqp._defects(problem, grid, xs_c, us_c, params, st.integrator, st.substeps))
+    path = f"legged_ipm_b{batch}"
+    emit({"phase": "profile_stages", "path": path, "B": batch, "N": n, "stages": stages})
+    x0 = x0s if batch > 1 else cfg["x0"]
+    busy = device_busy(torch, lambda: ipm_solve(cfg, x0, cfg["us_init"]))
     emit({"phase": "profile", "path": path, "B": batch, "N": n, "profiler": busy})
     return stages
 
@@ -1705,6 +2122,9 @@ def main() -> int:
     ap.add_argument("--comkino-out", metavar="PATH",
                     help="write the ComKino closed loop's iterations, merits per tick and "
                          "states as JSON (for tools/comkino_reference.py --compare)")
+    ap.add_argument("--ipm-out", metavar="PATH",
+                    help="write the IPM chains' tick states, iterations and merits and the "
+                         "cold solve as JSON (for tools/legged_ipm_reference.py --compare)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1729,7 +2149,7 @@ def main() -> int:
 
     emit({"phase": "kernels", "kernels": ["riccati_backward"],
           "shapes": [list(s) for s in KERNEL_SHAPES + [STRICT_SHAPE, PERC_SHAPE, LOOP_SHAPE,
-                                                       CK_TROT_SHAPE]]})
+                                                       CK_TROT_SHAPE, SLP_SHAPE]]})
     checks = [
         check_kernel(torch, riccati, riccati_cuda, shape, seed=11 + i, timed=i < 3)
         for i, shape in enumerate(KERNEL_SHAPES)
@@ -1742,6 +2162,8 @@ def main() -> int:
     # The ComKino trot solve's shape (the ComKino closed loop runs at LOOP_SHAPE).
     at_trot = check_kernel(torch, riccati, riccati_cuda, CK_TROT_SHAPE, seed=25, timed=True)
     check_strict_nan(torch, riccati, CK_TROT_SHAPE, seed=26, node=17)
+    # The SLP phase's SQP check (ballbot at B = 256).
+    at_slp = check_kernel(torch, riccati, riccati_cuda, SLP_SHAPE, seed=27, timed=True)
     if args.skip_main_path:
         return 0
 
@@ -1761,6 +2183,10 @@ def main() -> int:
     ck_loop = comkino_perceptive_closed_loop(torch, riccati_cuda, at_loop, args.comkino_out)
     ck_cfg = comkino_trot_setup(torch)
     ck_trot = comkino_trot(torch, riccati_cuda, ck_cfg, at_trot)
+    ipm_cfg = legged_ipm_setup(cfg)
+    ipm_b1 = legged_ipm_tick_b1(torch, riccati_cuda, ipm_cfg, ipm_out=args.ipm_out)
+    ipm_b256 = legged_ipm_b256(torch, riccati_cuda, ipm_cfg)
+    slp_run = slp_ballbot_b256(torch, riccati_cuda)
     if args.profile:
         profile_main_path(torch)
         profile_legged(torch, cfg, LEGGED_BATCH)
@@ -1768,18 +2194,23 @@ def main() -> int:
         profile_mpc(torch, iface)
         profile_perceptive(torch, perc_cfg)
         profile_legged(torch, ck_cfg, 1, path="comkino_sqp_b1")
+        profile_ipm(torch, ipm_cfg, 1)
+        profile_ipm(torch, ipm_cfg, LEGGED_BATCH)
 
     at_main, at_quad, at_legged = checks[0], checks[1], checks[2]
     shape_keys = ("nx", "nu", "B", "N", "pivots", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                   "bound_term", "bytes_ms", "flops_ms", "chain_ms", "max_abs_err")
     b1_sweeps = b1["riccati_launches"] / (1 + b1["chains"] * b1["ticks_per_chain"])
+    ipm_b1_sweeps = ipm_b1["riccati_launches"] / (1 + ipm_b1["chains"] * ipm_b1["ticks_per_chain"])
     emit({"kernels": [{
         "name": "riccati_backward", "route": "cuda",
         "source": "ocs2_tpu_torch/csrc/riccati_backward.cu",
         "replaces": "ocs2_tpu/ops/riccati_pallas.py:189",
         "launches": sum(r["riccati_launches"]
-                        for r in (run, b1, b256, closed, quad, perc, loop, ck_loop, ck_trot)),
-        "max_abs_err": max(c["max_abs_err"] for c in checks + [at_b1, at_perc, at_loop, at_trot]),
+                        for r in (run, b1, b256, closed, quad, perc, loop, ck_loop, ck_trot,
+                                  ipm_b1, ipm_b256)) + slp_run["sqp_check_riccati_launches"],
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in checks + [at_b1, at_perc, at_loop, at_trot, at_slp]),
         "shape": dict(zip(("nx", "nu", "B", "N"), MAIN_SHAPE)),
         "ms": at_main["kernel_ms"], "plain_ms": at_main["plain_ms"],
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
@@ -1828,6 +2259,22 @@ def main() -> int:
              "share_of_solve": ck_trot["kernel_share_of_solve"],
              "single_sweep_ms": at_trot["single_sweep_ms"],
              **{k: at_trot[k] for k in shape_keys}},
+            {"path": "legged_ipm_b1", "launches": ipm_b1["riccati_launches"],
+             "launches_per_tick": ipm_b1_sweeps,
+             "share_of_tick": ipm_b1_sweeps * at_b1["kernel_ms"] / ipm_b1["tick_ms_median"],
+             "single_sweep_ms": at_b1["single_sweep_ms"],
+             **{k: at_b1[k] for k in shape_keys}},
+            {"path": "legged_ipm_b256", "launches": ipm_b256["riccati_launches"],
+             "launches_per_solve": ipm_b256["launches_per_solve"],
+             "share_of_solve": ipm_b256["launches_per_solve"] * 1e-3 * at_legged["kernel_ms"]
+             / ipm_b256["seconds_per_solve"],
+             **{k: at_legged[k] for k in shape_keys}},
+            {"path": "ballbot_sqp_b256 (slp_ballbot_b256's check)",
+             "launches": slp_run["sqp_check_riccati_launches"],
+             "launches_per_solve": slp_run["sqp_check_riccati_launches"],
+             "share_of_solve": slp_run["sqp_check_riccati_launches"] * 1e-3 * at_slp["kernel_ms"]
+             / slp_run["sqp_seconds_per_solve"],
+             **{k: at_slp[k] for k in shape_keys}},
         ],
     }]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -102,7 +102,9 @@ def select_dynamics(model_type: str):
 
 
 def make_problem(
-    friction_cone: str = "soft",  # "soft" (relaxed barrier) | "hard" (AL)
+    # "soft" (relaxed barrier cost) | "hard" (an inequality: augmented
+    # Lagrangian under SQP, the native barrier under IPM)
+    friction_cone: str = "soft",
     project_foot_constraint: bool = True,
     model_type: str = "srbd",  # "srbd" | "full" | "comkino"
     device="cuda",

@@ -4,14 +4,14 @@ Counterpart of ``ocs2_tpu/mpc/mpc.py``.  ``Mpc.run(t, x)`` solves the horizon
 [t, t + T]: the host builds the event-aligned grid from the reference
 manager's mode schedule, shifts the previous solution onto it as the warm
 start (through trajectory spreading when the mode schedule moved), carries
-the augmented-Lagrangian multipliers, and calls ``sqp.solve`` / ``ddp.solve``
-for a batch of one directly (the JAX package jits that call; here it is the
-solver's own loop of device work).  The policy is a ``LinearController`` of
-tensors on the Mpc's device, consumed by the MRT side (``mrt.py``) without
-host round-trips.
-
-IPM and SLP are not ported yet: ``solver="ipm"`` / ``"slp"`` raise
-``NotImplementedError``.
+the augmented-Lagrangian multipliers, and calls ``sqp.solve`` / ``ipm.solve``
+/ ``slp.solve`` / ``ddp.solve`` for a batch of one directly (the JAX package
+jits that call; here it is the solver's own loop of device work).  The
+policy is a ``LinearController`` of tensors on the Mpc's device, consumed by
+the MRT side (``mrt.py``) without host round-trips.  The multiple-shooting family (``"sqp"``, ``"ipm"``,
+``"slp"``) gets the shifted states and inputs and the AL state; IPM's slacks
+and duals are not carried across ticks (each solve initializes them from its
+warm start), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,28 +31,30 @@ from ..oc.problem import OptimalControlProblem
 from ..oc.spreading import mode_schedules_differ, spread_trajectories
 from ..oc.time_discretization import TimeGrid, make_time_grid
 from ..solvers import ddp as ddp_mod
+from ..solvers import ipm as ipm_mod
+from ..solvers import slp as slp_mod
 from ..solvers import sqp as sqp_mod
 from ..solvers.al import AlState
 from ..utils.timers import RepeatedTimer
 
 Tensor = torch.Tensor
 
-DEFAULT_SETTINGS = {"sqp": sqp_mod.SqpSettings, "ddp": ddp_mod.DdpSettings}
-
-
-def unported_solver(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"solver={name!r}: the interior-point and SLP solvers (solvers/ipm.py, "
-        "solvers/slp.py with ops/pipg.py) belong to a later slice of the port; "
-        "only 'sqp' and 'ddp' are available"
-    )
+DEFAULT_SETTINGS = {
+    "sqp": sqp_mod.SqpSettings,
+    "ipm": ipm_mod.IpmSettings,
+    "slp": slp_mod.SlpSettings,
+    "ddp": ddp_mod.DdpSettings,
+}
+# The multiple-shooting family: solve(problem, grid, x0, params, xs_init=,
+# us_init=, al_init=, settings=, device=).
+_MULTIPLE_SHOOTING = {"sqp": sqp_mod.solve, "ipm": ipm_mod.solve, "slp": slp_mod.solve}
 
 
 @dataclasses.dataclass(frozen=True)
 class MpcSettings:
     time_horizon: float = 1.0
     num_intervals: int = 64
-    solver: str = "sqp"  # "sqp" | "ddp" ("ipm" | "slp" not ported)
+    solver: str = "sqp"  # "sqp" | "ipm" | "slp" | "ddp"
     cold_start: bool = False
     # Warm-start carry of AL multipliers across solves.
     carry_multipliers: bool = True
@@ -137,8 +139,9 @@ class Mpc:
         reference_manager: Optional[ReferenceManager] = None,
         device="cuda",
     ):
-        if settings.solver in ("ipm", "slp"):
-            raise unported_solver(settings.solver)
+        if settings.solver not in DEFAULT_SETTINGS:
+            raise ValueError(
+                f"unknown solver {settings.solver!r}; one of {sorted(DEFAULT_SETTINGS)}")
         self.problem = problem
         self.base_params = dict(params)
         self.settings = settings
@@ -167,7 +170,7 @@ class Mpc:
                 self.problem, grid, x0[None], params, us_init=warm_us, al_init=al,
                 settings=self.solver_settings, device=self.device,
             )
-        return sqp_mod.solve(
+        return _MULTIPLE_SHOOTING[self.settings.solver](
             self.problem, grid, x0, params, xs_init=warm_xs, us_init=warm_us,
             al_init=al, settings=self.solver_settings, device=self.device,
         )

@@ -4,12 +4,12 @@ Counterpart of ``ocs2_tpu/oc/rollout.py``.  A Python loop over the horizon
 advances all trajectories of a batch together: ``x0`` carries any leading
 batch dims ``[..., nx]`` and the policy returns inputs with the same leading
 dims.  Jump transitions are masked blends on the duplicated event nodes of
-the TimeGrid.  ``evaluate_rollout`` is not ported (``oc/metrics.py``
-evaluates trajectories).
+the TimeGrid.  ``evaluate_rollout`` prices a trajectory by the rectangle
+rule (the solvers' merit, ``oc/metrics.py``, uses the trapezoidal rule).
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -101,3 +101,59 @@ def ddp_search_policy(
         )
 
     return policy
+
+
+class RolloutMetrics(NamedTuple):
+    """Cost and constraint-violation accumulators of a rollout, [...] over
+    the trajectory's leading dims."""
+
+    cost: Tensor
+    eq_sse: Tensor
+    ineq_sse: Tensor  # sum of squared *violations* min(0, h)
+
+
+def evaluate_rollout(
+    problem: OptimalControlProblem,
+    grid: TimeGrid,
+    xs: Tensor,  # [..., N+1, nx]
+    us: Tensor,  # [..., N, nu]
+    params: Any,
+) -> RolloutMetrics:
+    """Total cost (rectangle rule, pre-jump cost on jump transitions, final
+    cost) and the constraint violations of a state/input trajectory."""
+    grid = grid.device(xs.device)
+    n = grid.num_intervals
+    nodes = torch.arange(n, device=xs.device)
+    t = grid.times[:-1]
+    dt = grid.times[1:] - t
+    x_k = xs[..., :-1, :]
+    p = node_params(params, grid, nodes)
+    sq = lambda v: torch.sum(torch.square(v), dim=-1)  # noqa: E731
+    viol = lambda h: sq(torch.clamp(h, max=0.0))  # noqa: E731
+
+    c = dt * problem.cost(t, x_k, us, p)
+    if problem.pre_jump_cost_terms:
+        c = c + grid.is_jump * problem.pre_jump_cost(t, x_k, p)
+    eq = torch.zeros_like(c)
+    if problem.equality_terms:
+        eq = eq + sq(problem.equality(t, x_k, us, p))
+    if problem.state_equality_terms:
+        eq = eq + sq(problem.state_equality(t, x_k, p))
+    ineq = torch.zeros_like(c)
+    if problem.inequality_terms:
+        ineq = ineq + viol(problem.inequality(t, x_k, us, p))
+    if problem.state_inequality_terms:
+        ineq = ineq + viol(problem.state_inequality(t, x_k, p))
+
+    tn, xn = grid.times[n], xs[..., n, :]
+    pn = node_params(params, grid, n)
+    cost = torch.sum(c, dim=-1) + problem.final_cost(tn, xn, pn)
+    eq_sse = torch.sum(eq, dim=-1)
+    ineq_sse = torch.sum(ineq, dim=-1)
+    if problem.state_equality_terms:
+        eq_sse = eq_sse + sq(problem.state_equality(tn, xn, pn))
+    if problem.final_equality_terms:
+        eq_sse = eq_sse + sq(problem.final_equality(tn, xn, pn))
+    if problem.state_inequality_terms:
+        ineq_sse = ineq_sse + viol(problem.state_inequality(tn, xn, pn))
+    return RolloutMetrics(cost=cost, eq_sse=eq_sse, ineq_sse=ineq_sse)

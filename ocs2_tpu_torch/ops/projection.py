@@ -46,22 +46,39 @@ def _mv(m: Tensor, v: Tensor) -> Tensor:
 def householder_qr(a: Tensor):
     """Complete QR of a [..., m, n] (m >= n) by n Householder reflections
     written as batched tensor ops: Q [..., m, m] orthogonal, R [..., m, n]
-    upper triangular (below the diagonal: rounding-level residue).  The same
-    arithmetic as ``torch.linalg.qr(mode="complete")``."""
+    upper triangular.  LAPACK's conventions (``geqr2`` + ``org2r``, which
+    ``torch.linalg.qr(mode="complete")`` and the reference's QR call): each
+    reflector is H = I - tau v v' with v[0] = 1, a column that is already
+    zero below the diagonal gets tau = 0 (H = I), and Q is accumulated from
+    the last reflector to the first.  So a coordinate that no column touches
+    keeps an exact unit vector in Q, as in LAPACK: the null-space basis does
+    not mix an unconstrained input with the others by rounding, which keeps
+    the reduced Hessian of a node whose cost is a rank-deficient sum (a jump
+    node under IPM's condensation) as well conditioned as the reference's."""
     m, n = a.shape[-2:]
     r = a.clone()
-    q = torch.eye(m, dtype=a.dtype, device=a.device).expand(a.shape[:-2] + (m, m)).clone()
+    vs, taus = [], []
     for j in range(n):
         x = r[..., j:, j]
-        v = x.clone()
-        # v = x - alpha e0 with alpha = -sign(x0) |x|: no cancellation.
-        v[..., 0] += torch.copysign(torch.linalg.vector_norm(x, dim=-1), x[..., 0])
-        # H = I - tau v v'; a zero column gives v = 0 and H = I.
-        tau = 2.0 / torch.clamp(torch.sum(v * v, dim=-1, keepdim=True), min=1e-30)
-        w = tau * (v.unsqueeze(-2) @ r[..., j:, j:]).squeeze(-2)
-        r[..., j:, j:] -= v.unsqueeze(-1) * w.unsqueeze(-2)
-        qv = tau * (q[..., :, j:] @ v.unsqueeze(-1)).squeeze(-1)
-        q[..., :, j:] -= qv.unsqueeze(-1) * v.unsqueeze(-2)
+        alpha = x[..., 0]
+        xnorm = torch.linalg.vector_norm(x[..., 1:], dim=-1)
+        beta = -torch.copysign(torch.sqrt(alpha * alpha + xnorm * xnorm), alpha)
+        untouched = xnorm == 0.0
+        one = torch.ones_like(alpha)
+        tau = torch.where(untouched, torch.zeros_like(alpha), (beta - alpha) / beta)
+        scale = torch.where(untouched, torch.zeros_like(alpha), one / (alpha - beta))
+        v = torch.cat([one.unsqueeze(-1), x[..., 1:] * scale.unsqueeze(-1)], dim=-1)
+        w = (v.unsqueeze(-2) @ r[..., j:, j + 1:]).squeeze(-2)
+        r[..., j:, j + 1:] -= (tau.unsqueeze(-1) * v).unsqueeze(-1) * w.unsqueeze(-2)
+        r[..., j, j] = torch.where(untouched, alpha, beta)
+        r[..., j + 1:, j] = 0.0
+        vs.append(v)
+        taus.append(tau)
+    q = torch.eye(m, dtype=a.dtype, device=a.device).expand(a.shape[:-2] + (m, m)).clone()
+    for j in reversed(range(n)):
+        v, tau = vs[j], taus[j]
+        w = (v.unsqueeze(-2) @ q[..., j:, j:]).squeeze(-2)
+        q[..., j:, j:] -= (tau.unsqueeze(-1) * v).unsqueeze(-1) * w.unsqueeze(-2)
     return q, r
 
 

@@ -7,8 +7,9 @@ exactly and multiplier updates are pure tensor ops.
 
 The node index is injected into params (key "node") by the LQ approximator /
 trajectory evaluator so AL terms can gather their node's multiplier row.
-``update_multipliers`` is not ported (``oc/metrics.al_dual_ascent`` is what
-the solvers use).
+The solvers update multipliers from stored constraint values
+(``oc/metrics.al_dual_ascent``); ``update_multipliers`` does it from a
+trajectory.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ from typing import NamedTuple
 import torch
 
 from ..core import penalties as pen
+from ..oc.metrics import al_dual_ascent, evaluate_trajectory
 from ..oc.problem import GaussNewtonCost, OptimalControlProblem
+from ..oc.time_discretization import TimeGrid
 
 Tensor = torch.Tensor
 
@@ -135,3 +138,20 @@ def augment_problem(
         state_inequality_terms=(),
         final_equality_terms=(),
     )
+
+
+def update_multipliers(
+    problem: OptimalControlProblem,
+    grid: TimeGrid,
+    xs: Tensor,
+    us: Tensor,
+    params,
+    al: AlState,
+    rho_growth: float = 1.0,
+    rho_max: float = 1e6,
+) -> AlState:
+    """Dual ascent on all multipliers at the trajectory xs [..., N+1, nx],
+    us [..., N, nu] (leading dims those of ``al``), and the penalty grown by
+    ``rho_growth`` up to ``rho_max``."""
+    new = al_dual_ascent(evaluate_trajectory(problem, grid, xs, us, params), al)
+    return new._replace(rho=torch.clamp(al.rho * rho_growth, max=rho_max))

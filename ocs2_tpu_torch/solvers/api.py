@@ -6,9 +6,10 @@ Hamiltonian query surface (``oc/queries.py``).  The solvers return every
 field with a leading scenario dim; the queries read one scenario
 (``scenario=0`` unless asked).
 
-``"sqp"`` and ``"ilqr"`` are available.  The continuous-time SLQ backward
-pass, IPM and SLP belong to later slices: ``"slq"``, ``"ipm"`` and ``"slp"``
-raise ``NotImplementedError`` at construction.
+``"sqp"``, ``"ipm"``, ``"slp"`` and ``"ilqr"`` are available.  The
+continuous-time SLQ backward pass belongs to a later slice: ``"slq"`` raises
+``NotImplementedError`` at construction.  PIPG (SLP) computes no value
+function: the queries of an SLP solve read NaN.
 """
 from __future__ import annotations
 
@@ -22,16 +23,20 @@ from ..oc.problem import OptimalControlProblem
 from ..oc.queries import hamiltonian, hamiltonian_approx, value_function
 from ..oc.time_discretization import TimeGrid
 from . import ddp as _ddp
+from . import ipm as _ipm
+from . import slp as _slp
 from . import sqp as _sqp
 
 Tensor = torch.Tensor
 
-ALGORITHMS = {"sqp": _sqp.SqpSettings, "ilqr": _ddp.DdpSettings}
-_LATER = {
-    "slq": "the continuous-time SLQ backward pass (ops/riccati_ct.py)",
-    "ipm": "the interior-point solver (solvers/ipm.py)",
-    "slp": "the SLP solver (solvers/slp.py with ops/pipg.py)",
+ALGORITHMS = {
+    "sqp": _sqp.SqpSettings,
+    "ipm": _ipm.IpmSettings,
+    "slp": _slp.SlpSettings,
+    "ilqr": _ddp.DdpSettings,
 }
+_MULTIPLE_SHOOTING = {"sqp": _sqp.solve, "ipm": _ipm.solve, "slp": _slp.solve}
+_LATER = {"slq": "the continuous-time SLQ backward pass (ops/riccati_ct.py)"}
 
 
 class Solver:
@@ -84,7 +89,7 @@ class Solver:
                 us_init=us_init, settings=self.settings, device=self.device,
             )
         else:
-            sol = _sqp.solve(
+            sol = _MULTIPLE_SHOOTING[self.algorithm](
                 self.problem, grid, x0, params, xs_init=xs_init, us_init=us_init,
                 settings=self.settings, device=self.device,
             )

@@ -23,7 +23,12 @@ Per iteration, with no sequential rollout anywhere:
 * inequality constraints as augmented-Lagrangian terms in the cost
   (``solvers/al.py``) with a LANCELOT outer schedule.
 
-The first-order QP back ends (``qp_solver="pipg"``, ``"pipg_sharded"``) and
+``qp_solver="pipg"`` swaps the Riccati recursion for Ruiz equilibration and
+the first-order PIPG iteration (``ops/pipg.py``; the SLP configuration,
+``solvers/slp.py``).  PIPG gives no value function and no feedback: the
+gains are zero (remapped through the projection, where there is one) and
+``value_S`` / ``value_s`` are NaN, so that a consumer of the value function
+fails visibly.  The horizon-sharded PIPG (``qp_solver="pipg_sharded"``) and
 the associative-scan Riccati raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -39,6 +44,7 @@ from ..oc.approx import approximate_lq, example_params, node_params
 from ..oc.metrics import TrajectoryMetrics, al_dual_ascent, al_merit, evaluate_trajectory
 from ..oc.problem import OptimalControlProblem
 from ..oc.time_discretization import TimeGrid
+from ..ops.pipg import PipgSettings, pipg_solve, ruiz_equilibrate
 from ..ops.projection import project_lqr_coeffs, remap_projected_gain, remap_projected_input
 from ..ops.riccati import LqrCoeffs, convexify, lqr_backward, lqr_forward
 from .al import AlState, augment_problem
@@ -89,8 +95,11 @@ class SqpSettings:
     outer_update_every: int = 10
     parallel_riccati: bool = False
     use_feedback_policy: bool = True
-    # Inner QP backend: only "riccati" (exact) is ported.
+    # Inner QP backend: "riccati" (exact) or "pipg" (first-order, the SLP
+    # configuration); "pipg_sharded" is not ported.
     qp_solver: str = "riccati"
+    pipg_iterations: int = 2000
+    ruiz_iterations: int = 5
 
 
 class IterationLog(NamedTuple):
@@ -178,12 +187,14 @@ def solve(
     must live there.  Two test hooks route the backward sweep away from the
     CUDA kernel: ``force_plain_riccati`` through its plain PyTorch version,
     ``force_single_riccati`` (B = 1) through the single-scenario sweep."""
-    if settings.qp_solver != "riccati":
+    if settings.qp_solver == "pipg_sharded":
         raise NotImplementedError(
-            f"qp_solver={settings.qp_solver!r}: the first-order PIPG back ends "
-            "(ops/pipg.py, parallel/horizon.py) belong to a later slice of the "
-            "port; only 'riccati' is available"
+            "qp_solver='pipg_sharded': the horizon-sharded PIPG "
+            "(parallel/horizon.py) belongs to a later slice of the port; "
+            "'riccati' and 'pipg' are available"
         )
+    if settings.qp_solver not in ("riccati", "pipg"):
+        raise ValueError(f"unknown qp_solver {settings.qp_solver!r}")
     if settings.parallel_riccati:
         raise NotImplementedError(
             "parallel_riccati=True: the associative-scan Riccati "
@@ -275,23 +286,34 @@ def solve(
             )
 
         def solve_qp(qp: LqrCoeffs):
+            """(dxs, dus, gains, value_S, value_s) of the inner QP."""
+            if settings.qp_solver == "pipg":
+                scaled, scal = ruiz_equilibrate(qp, settings.ruiz_iterations)
+                psol = pipg_solve(scaled, PipgSettings(num_iterations=settings.pipg_iterations))
+                nv = qp.B.shape[-1]
+                nan = float("nan")
+                return (
+                    scal.d_x * psol.dxs, scal.d_u * psol.dus,
+                    torch.zeros((batch, n, nv, nx), dtype=f32, device=dev),
+                    torch.full((batch, n + 1, nx, nx), nan, dtype=f32, device=dev),
+                    torch.full((batch, n + 1, nx), nan, dtype=f32, device=dev),
+                )
             qp = LqrCoeffs(*(leaf.contiguous() for leaf in qp))
             sol = lqr_backward(
                 qp, c.reg, force_plain=force_plain_riccati, force_single=force_single_riccati
             )
             dxs, dus_r = lqr_forward(qp, sol, dx0)
-            return dxs, dus_r, sol
+            return dxs, dus_r, sol.gains, sol.value_S, sol.value_s
 
         if project:
             reduced, proj = project_lqr_coeffs(
                 coeffs, lq.eq.f, lq.eq.dfdx, lq.eq.dfdu
             )
-            dxs, dvs, sol = solve_qp(reduced)
+            dxs, dvs, gains_r, value_S, value_s = solve_qp(reduced)
             dus = remap_projected_input(proj, dxs[:, :-1], dvs)
-            gains = remap_projected_gain(proj, sol.gains)
+            gains = remap_projected_gain(proj, gains_r)
         else:
-            dxs, dus, sol = solve_qp(coeffs)
-            gains = sol.gains
+            dxs, dus, gains, value_S, value_s = solve_qp(coeffs)
 
         # Non-finite directions (ill-posed QP at wildly infeasible iterates)
         # must not poison the carry: zero the step so every candidate equals
@@ -413,7 +435,7 @@ def solve(
             ),
             reg=reg_n,
             it=c.it + 1, done=done,
-            gains=gains, value_S=sol.value_S, value_s=sol.value_s,
+            gains=gains, value_S=value_S, value_s=value_s,
         )
         return new, log
 

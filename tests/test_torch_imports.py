@@ -161,3 +161,25 @@ def test_convert_params_roundtrip():
     assert isinstance(p["target"], TargetTrajectories) and isinstance(p["al"], AlState)
     assert p["target"].states.dtype == torch.float32 and p["al"].rho.dtype == torch.float32
     assert p["gain"].tolist() == [0.0, 1.0, 2.0] and p["al"].lmbd_ineq.shape == (4, 2)
+
+
+@pytest.mark.parametrize("module", [
+    "solvers/ipm.py", "ops/pipg.py", "solvers/slp.py", "solvers/qp.py"])
+def test_solver_slice_modules_are_present_and_imported(fresh_import, module):
+    """The interior-point / PIPG / SLP slice's modules exist and are among
+    those the fresh interpreter imported without JAX or the JAX package."""
+    proc, _ = fresh_import
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names = proc.stdout.split("MODULES", 1)[1].split()
+    assert (PKG / module).exists()
+    assert "ocs2_tpu_torch." + module[:-3].replace("/", ".") in names
+
+
+def test_solver_slice_entry_points_default_to_the_card():
+    import inspect
+
+    from ocs2_tpu_torch.mpc import mpc
+    from ocs2_tpu_torch.solvers import api, ipm, slp
+
+    for fn in (ipm.solve, slp.solve, mpc.Mpc, api.Solver):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn

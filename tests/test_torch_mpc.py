@@ -146,10 +146,32 @@ def test_di_cold_start_and_reset():
 
 
 @pytest.mark.parametrize("solver", ["ipm", "slp"])
-def test_unported_mpc_solvers_raise(solver):
-    with pytest.raises(NotImplementedError, match="later slice"):
+def test_ipm_and_slp_mpc_construct_and_solve(solver):
+    """``Mpc(solver="ipm" | "slp")`` takes the solver's own settings and
+    solves a tick of the unconstrained double integrator to the SQP tick's
+    policy (IPM to 1e-3, SLP to tests/test_pipg.py's 5e-2); SLP's policy is
+    feedforward.  (The IPM loop is held against the JAX package's in
+    tests/test_torch_ipm.py.)"""
+    from ocs2_tpu_torch.solvers import ipm, slp
+
+    mine, _ = di_pair(solver)
+    assert isinstance(mine.solver_settings, {"ipm": ipm.IpmSettings, "slp": slp.SlpSettings}[solver])
+    sqp_mpc, _ = di_pair("sqp")
+    x = torch.tensor([1.0, 0.0])
+    pol, ref = mine.run(0.0, x), sqp_mpc.run(0.0, x)
+    atol = 1e-3 if solver == "ipm" else 5e-2
+    close(pol.us, ref.us, 0.0, atol)
+    assert mine.last_solution.iterations.shape == (1,) and mine.solve_timer.count == 1
+    assert bool(pol.controller.gains.any()) == (solver == "ipm")
+    # The next tick is warm-started from this one.
+    mine.run(0.05, torch.tensor([0.99, -0.1]))
+    assert mine.solve_timer.count == 2 and mine.spread_count == 0
+
+
+def test_unknown_mpc_solver_raises():
+    with pytest.raises(ValueError, match="unknown solver"):
         Mpc(di.make_problem(device="cpu"), di.make_params(device="cpu"),
-            settings=MpcSettings(solver=solver), device="cpu")
+            settings=MpcSettings(solver="nope"), device="cpu")
 
 
 @functools.lru_cache(maxsize=None)

@@ -182,3 +182,28 @@ def test_householder_qr_is_a_complete_qr(shape):
         np.testing.assert_allclose(
             (q2 @ q2.transpose(-1, -2)).numpy(), (q2_ref @ q2_ref.transpose(-1, -2)).numpy(),
             atol=1e-5)
+
+
+def test_householder_qr_keeps_untouched_coordinates_exact():
+    """LAPACK's conventions: a reflector is the identity where its column is
+    already zero below the diagonal, and Q is accumulated from the last
+    reflector, so the null-space basis has an exact zero wherever the JAX
+    package's QR has one (on the legged robot's foot-constraint structure:
+    swing legs' force rows, stance rows on 1-3 joint velocities).  Rounding
+    therefore couples no unconstrained input with the others: at a jump node
+    under IPM's condensation (49 on a stance force, 1e-6 elsewhere) that
+    coupling decided whether the float32 Cholesky of the reduced Hessian
+    succeeded (PERF.md §6, PR 7)."""
+    rng = np.random.default_rng(43)
+    d = np.zeros((12, 24), np.float32)
+    for row in range(12):  # each constraint row on 1-3 joint-velocity coordinates
+        cols = 12 + rng.choice(12, size=1 + row % 3, replace=False)
+        d[row, cols] = rng.standard_normal(cols.size)
+    d[3:9] = 0.0
+    d[3:9, 3:9] = np.eye(6, dtype=np.float32)  # two swing legs: zero force rows
+    q, _ = projection.householder_qr(torch.as_tensor(d.T))
+    q_ref, _ = jnp.linalg.qr(jnp.asarray(d.T), mode="complete")
+    pu, pu_ref = q[:, 12:].numpy(), np.asarray(q_ref)[:, 12:]
+    assert (pu == 0.0).sum() > 200
+    np.testing.assert_array_equal(pu == 0.0, pu_ref == 0.0)
+    np.testing.assert_allclose(np.abs(pu), np.abs(pu_ref), atol=1e-6)

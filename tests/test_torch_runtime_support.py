@@ -313,10 +313,28 @@ def test_solver_facade_matches(algorithm):
     assert solver.get_hamiltonian(t8, mine.xs[0, 8], mine.us[0, 8], quadratic=True).dfduu.shape == (1, 1)
 
 
-@pytest.mark.parametrize("algorithm", ["slq", "ipm", "slp"])
+@pytest.mark.parametrize("algorithm", ["slq"])
 def test_solver_facade_later_algorithms_raise(algorithm):
     with pytest.raises(NotImplementedError, match="later slice"):
         Solver(di.make_problem(device="cpu"), algorithm=algorithm, device="cpu")
+
+
+@pytest.mark.parametrize("algorithm", ["ipm", "slp"])
+def test_solver_facade_ipm_and_slp_solve(algorithm):
+    """``Solver("ipm" | "slp")`` solves the unconstrained double integrator
+    to the SQP facade's inputs (IPM to 1e-3, SLP to tests/test_pipg.py's
+    5e-2); IPM's value function is the Riccati one, SLP's is NaN (PIPG
+    computes none)."""
+    grid, x0 = uniform_grid(0.0, 2.0, 25), np.array([1.0, 0.0], np.float32)
+    ref = Solver(di.make_problem(device="cpu"), algorithm="sqp", device="cpu").run(
+        grid, x0, di.make_params(device="cpu"))
+    solver = Solver(di.make_problem(device="cpu"), algorithm=algorithm, device="cpu")
+    sol = solver.run(grid, x0, di.make_params(device="cpu"))
+    close(sol.us[0], ref.us[0], 0.0, 1e-3 if algorithm == "ipm" else 5e-2)
+    times, xs, us, gains = solver.primal_solution()
+    assert xs.shape == (1, 26, 2) and gains.shape == (1, 25, 1, 2)
+    v = solver.get_value_function(torch.tensor(float(times[8])), sol.xs[0, 8])
+    assert bool(torch.isnan(v.f).any()) == (algorithm == "slp")
 
 
 def test_solver_facade_unknown_algorithm():

@@ -328,11 +328,26 @@ def test_initial_guesses_broadcast_and_pin_the_first_state():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"qp_solver": "pipg"}, {"qp_solver": "pipg_sharded"}, {"parallel_riccati": True},
+    {"qp_solver": "pipg_sharded"}, {"parallel_riccati": True},
 ])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="slice"):
         _solve_toy(_toy_x0(1), settings=kwargs)
+
+
+def test_qp_solver_pipg_solves_the_projected_toy():
+    """``qp_solver="pipg"`` (Ruiz + PIPG in place of the Riccati sweep) runs
+    the projected toy to the Riccati route's inputs within
+    tests/test_pipg.py's 5e-2, with NaN for the value function it does not
+    compute; an unknown back end is refused.  (Parity with the JAX package:
+    tests/test_torch_pipg.py.)"""
+    x0 = _toy_x0(2)
+    ref = _solve_toy(x0)
+    sol = _solve_toy(x0, settings=dict(qp_solver="pipg", pipg_iterations=1000))
+    np.testing.assert_allclose(sol.us.numpy(), ref.us.numpy(), atol=5e-2)
+    assert bool(torch.isnan(sol.value_S).all()) and bool(torch.isnan(sol.value_s).all())
+    with pytest.raises(ValueError, match="qp_solver"):
+        _solve_toy(x0, settings=dict(qp_solver="osqp"))
 
 
 def test_bad_inputs_raise():
