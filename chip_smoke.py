@@ -47,7 +47,16 @@ main paths and checks that they went through the kernels:
   ballbot problem for 256 of the main path's scenarios, held against the JAX
   package's SLP on them (a record in ``tests/torch_data/``), ``sqp.solve``
   beside it (the kernel at (256, 32, 10, 3)), and the torch launches of one
-  PIPG iteration counted by the profiler.
+  PIPG iteration counted by the profiler;
+* the DDP family: ``slq_ballbot_b4096`` (``ddp.solve`` with
+  ``algorithm="slq"`` on the main path's batch; the sweep is the
+  continuous-time Riccati kernel ``csrc/riccati_ct_backward.cu`` at
+  (10, 3, 4096, 32), one launch a loop iteration, held against its plain
+  version), ``hybrid_bouncing_mass`` (``solve_state_triggered`` on the
+  bouncing mass at B = 1, the discrete kernel at (2, 1, 1, 46) with strict
+  pivots, held against the JAX package's record in ``tests/torch_data/``) and
+  ``switch_time_exp0`` (``optimize_switch_times`` with SQP on a switched
+  linear system, the discrete kernel at (2, 1, 1, 40)).
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when there
@@ -56,7 +65,8 @@ package.
 
 Peak rates used for the bounds: 3.35 TB/s of device memory and 67 TFLOP/s of
 float32 outside the tensor cores (NVIDIA H100 SXM data sheet); the latencies
-of the dependent chain are stated at ``riccati_bound``.
+of the dependent chain are stated at ``riccati_bound`` and
+``riccati_ct_bound``.
 """
 from __future__ import annotations
 
@@ -1762,6 +1772,597 @@ def slp_ballbot_b256(torch, riccati_cuda):
     return rec
 
 
+# -- the DDP family: SLQ's continuous-time sweep, the hybrid DDP, switch times ----
+
+# (nx, nu, B, N, jump intervals) of the CT sweep's checks: the SLQ lane's shape
+# (no jumps), one scenario with jump intervals at dt = 0, and a ragged batch
+# with more inputs than states and a jump.
+CT_SHAPES = [(10, 3, 4096, 32, ()), (2, 1, 1, 100, (30, 61)), (3, 5, 77, 6, (2,))]
+CT_SUBSTEPS = 4  # DdpSettings.riccati_substeps
+# The hybrid phase's K1 shape: 40 base intervals and 3 event slots (N = 46),
+# and the switch-time phase's (N = 40 with the event's jump interval).
+HYB_SHAPE = (2, 1, 1, 46)
+SWITCH_SHAPE = (2, 1, 1, 40)
+HYBRID_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_data",
+                             "hybrid_bouncing_mass_reference.npz")
+# The hybrid solve against the JAX package's record: event times (s) and
+# the cost (relative); states and inputs at SOLVE_ATOL / SOLVE_RTOL, as the
+# kernel route against the plain one (see hybrid_open_step).
+HYB_EVENT_ATOL, HYB_COST_RTOL = 1e-5, 1e-5
+SWITCH_FD_EPS, SWITCH_FD_SHARE = 0.02, 0.25  # tests/test_hybrid.py's finite difference
+SWITCH_RECORD = os.path.join(os.path.dirname(HYBRID_RECORD), "switch_time_exp0_reference.npz")
+# The switch-time run against the JAX package's record (tests/
+# test_torch_hybrid.py's tolerances): the gradient (relative, plus an
+# absolute floor), event times (s), costs (relative).
+SWITCH_GRAD_RTOL, SWITCH_GRAD_ATOL, SWITCH_THETA_ATOL, SWITCH_COST_RTOL = 1e-4, 1e-6, 1e-5, 1e-5
+
+
+def random_ct(torch, riccati_ct, nx, nu, batch, n, seed, jumps=()):
+    """Numpy-seeded continuous-time LQ data on the card (the recipe of
+    tests/test_torch_riccati_ct.py): a uniform grid on [0, 1] with a
+    duplicated node (dt = 0) after each jump interval; PD R and Q."""
+    rng = np.random.default_rng(seed)
+    r = lambda sc, *s: (sc * rng.standard_normal(s)).astype(np.float32)  # noqa: E731
+    ex, eu = np.eye(nx, dtype=np.float32), np.eye(nu, dtype=np.float32)
+    wq, wr, wj = r(0.1, batch, n + 1, nx, nx), r(0.05, batch, n + 1, nu, nu), r(0.1, batch, n, nx, nx)
+    t = list(np.linspace(0.0, 1.0, n + 1 - len(jumps)).astype(np.float32))
+    for j in sorted(jumps):
+        t.insert(j + 1, t[j])
+    is_jump = np.zeros(n, np.float32)
+    is_jump[list(jumps)] = 1.0
+    leaves = dict(
+        A=r(0.5, batch, n + 1, nx, nx), B=r(0.5, batch, n + 1, nx, nu),
+        Q=ex + wq + wq.transpose(0, 1, 3, 2), q=r(0.3, batch, n + 1, nx),
+        R=eu + wr + wr.transpose(0, 1, 3, 2), r=r(0.3, batch, n + 1, nu),
+        P=r(0.1, batch, n + 1, nu, nx), A_jump=ex + r(0.2, batch, n, nx, nx),
+        Q_jump=ex + 0.5 * (wj + wj.transpose(0, 1, 3, 2)), q_jump=r(0.2, batch, n, nx),
+        Qf=np.broadcast_to(ex, (batch, nx, nx)).copy(), qf=r(0.3, batch, nx),
+        times=np.asarray(t, np.float32), is_jump=is_jump,
+    )
+    return riccati_ct.CtLqCoeffs(**{k: torch.as_tensor(np.ascontiguousarray(v), device=DEVICE)
+                                    for k, v in leaves.items()})
+
+
+def riccati_ct_bound(nx, nu, batch, n, substeps=CT_SUBSTEPS):
+    """Least time for the CT sweep, the largest of three floors.
+
+    * bytes: each input read once (node data at N+1 nodes, jump data at N
+      intervals, the terminal value, the shared grid, reg), each output
+      written once, over the memory rate;
+    * flops: the function's arithmetic over the float32 rate: per right-hand
+      side evaluation the interpolation of the node data, A'S (S A is its
+      transpose, S being symmetric), B'S and B's, A's, the nu x nu Cholesky,
+      the solve of nx + 1 columns, the symmetric G'K, G'k and the stage
+      updates, 4 * substeps of them an interval, plus the step ends, the jump
+      branch (the reference blends both branches at every interval), the
+      blend and node k's gains;
+    * chain: the intervals follow one another and so do, inside an interval,
+      the 4 * substeps evaluations; an evaluation's S-dependent chain is a dot
+      product of length nx (A'S), the two triangular solves (2 nu dependent
+      multiply-adds, the pivots' reciprocals off the chain since R(theta)
+      does not depend on S), a dot product of length nu (G'K) and the stage
+      update, with a hand-over between threads after each; latencies as at
+      ``riccati_bound``."""
+    node = 2 * nx * nx + nx * nu + nx + nu * nu + nu + nu * nx
+    floats_in = batch * ((n + 1) * node + n * (2 * nx * nx + nx) + nx * nx + nx + 1) + 2 * n + 1
+    floats_out = batch * (n * (nu * nx + nu) + (n + 1) * (nx * nx + nx) + 2)
+    nbytes = 4 * (floats_in + floats_out)
+    solve = nu ** 3 // 3 + 2 * nu * nu * (nx + 1)
+    per_eval = (
+        2 * node                                   # interpolation
+        + 2 * nx ** 3 + 2 * nu * nx * (nx + 1)     # A'S (S A = (A'S)'), [B'S | B's]
+        + 2 * nx * nx + solve                      # A's, Cholesky + solves
+        + 2 * nu * nx * nx + 2 * nu * nx           # G'K (symmetric), G'k
+        + 6 * (nx * nx + nx)                       # sums, stage input
+    )
+    per_interval = (
+        4 * substeps * per_eval + substeps * 4 * (nx * nx + nx)  # step ends, sym
+        + 4 * nx ** 3 + 4 * nx * nx                # jump branch
+        + 3 * (nx * nx + nx)                       # blend
+        + 2 * nu * nx * (nx + 1) + solve + 4 * nu * nu  # gains, dv
+    )
+    flops = batch * n * per_interval
+    dot = lambda m: FMA_CYCLES * (1 + (m - 1).bit_length())  # noqa: E731
+    chain_cycles = n * 4 * substeps * (
+        dot(nx) + 2 * nu * FMA_CYCLES + dot(nu) + FMA_CYCLES + 3 * EXCHANGE_CYCLES)
+    terms = {
+        "bytes": nbytes / PEAK_BYTES_PER_S, "flops": flops / PEAK_F32_FLOPS,
+        "chain": chain_cycles / BOOST_CLOCK_HZ,
+    }
+    term = max(terms, key=terms.get)
+    return {
+        "bytes": nbytes, "flops": flops, "chain_cycles": chain_cycles,
+        "bytes_ms": 1e3 * terms["bytes"], "flops_ms": 1e3 * terms["flops"],
+        "chain_ms": 1e3 * terms["chain"], "bound_ms": 1e3 * terms[term],
+        "bound_by": "bytes" if term == "bytes" else "operations", "bound_term": term,
+    }
+
+
+def check_ct_kernel(torch, riccati_ct, riccati_ct_cuda, shape, seed, timed):
+    """The CT kernel, through the entry point the solvers call, against its
+    plain version on the same data at K1's RTOL / ATOL: one launch per reg
+    value of REG_VALUES at B = 1, the values spread over the scenarios of a
+    batch."""
+    nx, nu, batch, n, jumps = shape
+    coeffs = random_ct(torch, riccati_ct, nx, nu, batch, n, seed, jumps)
+    regs = ([torch.full((1,), v, device=DEVICE) for v in REG_VALUES] if batch == 1 else
+            [torch.as_tensor(np.resize(np.asarray(REG_VALUES, np.float32), batch), device=DEVICE)])
+    max_err, bad = 0.0, []
+    for reg in regs:
+        before = riccati_ct_cuda.launch_count
+        out = riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS)
+        torch.cuda.synchronize()
+        assert riccati_ct_cuda.launch_count == before + 1
+        err, bad_fields = compare_fields(
+            torch, out, riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS, force_plain=True))
+        max_err, bad = max(max_err, err), bad + bad_fields
+    geometry = riccati_ct_cuda.launch_geometry(nx, nu, batch)
+    rec = {
+        "phase": "kernel_check", "kernel": "riccati_ct_backward", "pivots": "strict",
+        "nx": nx, "nu": nu, "B": batch, "N": n, "jump_intervals": list(jumps),
+        "substeps": CT_SUBSTEPS, "reg_values": list(REG_VALUES),
+        "blocks": geometry.blocks, "threads": geometry.threads,
+        "shared_bytes": geometry.shared_bytes, "max_abs_err": max_err, "rtol": RTOL,
+        "atol": ATOL, "ok": not bad,
+    }
+    if timed:
+        reg = regs[-1]
+        rec.update(riccati_ct_bound(nx, nu, batch, n))
+        rec["kernel_ms"] = time_ms(
+            torch, lambda: riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS), reps=20, warmup=3)
+        rec["plain_ms"] = time_ms(
+            torch, lambda: riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS, force_plain=True),
+            reps=3, warmup=1)
+    emit(rec)
+    if bad:
+        raise SystemExit(f"riccati_ct_backward disagrees with its plain version at {shape}: {bad}")
+    return rec
+
+
+def check_ct_nan(torch, riccati_ct, shape, seed, scenario, node):
+    """R = -I at one node of one scenario: the kernel's NaN entries are its
+    plain version's, element for element (that node's gains and every
+    earlier node of the scenario, dv1, dv2), the finite entries agree and
+    the other scenarios stay finite."""
+    nx, nu, batch, n, jumps = shape
+    coeffs = random_ct(torch, riccati_ct, nx, nu, batch, n, seed, jumps)
+    coeffs.R[scenario, node] = -torch.eye(nu, device=DEVICE)
+    reg = torch.zeros((batch,), device=DEVICE)
+    out = riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS)
+    torch.cuda.synchronize()
+    ref = riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS, force_plain=True)
+    err, bad = compare_fields(torch, out, ref, nan_equal=True)
+    nan_nodes = torch.isnan(out.gains[scenario]).all(dim=(1, 2))
+    others = [b for b in range(batch) if b != scenario]
+    if (not bool(nan_nodes[:node + 1].all()) or bool(nan_nodes[node + 1:].any())
+            or not bool(torch.isnan(out.dv1[scenario])) or not bool(torch.isfinite(out.gains[others]).all())):
+        bad.append("placement")
+    emit({"phase": "kernel_check", "kernel": "riccati_ct_backward", "pivots": "strict",
+          "fixture": f"R = -I at node {node} of scenario {scenario}", "nx": nx, "nu": nu,
+          "B": batch, "N": n, "nan_nodes": int(nan_nodes.sum()), "max_abs_err_of_finite": err,
+          "ok": not bad})
+    if bad:
+        raise SystemExit(f"riccati_ct_backward: NaN placement differs at {shape}: {bad}")
+
+
+def ballbot_batch(torch, batch=4096):
+    """main_path's problem, grid and numpy-seeded initial states."""
+    from ocs2_tpu_torch.models import ballbot
+    from ocs2_tpu_torch.oc.time_discretization import uniform_grid
+
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(
+        (0.1 * rng.standard_normal((batch, ballbot.NX))).astype(np.float32), device=DEVICE)
+    return (ballbot.make_problem(device=DEVICE), ballbot.make_params(device=DEVICE),
+            uniform_grid(0.0, 1.0, 32), x0s)
+
+
+def slq_ballbot_b4096(torch, riccati_cuda, riccati_ct_cuda, main_run, solves=3):
+    """``ddp.solve`` with ``algorithm="slq"`` (8 iterations at most) on
+    main_path's batch: a warm-up, ``solves`` timed solves, then the first 256
+    scenarios again through ``force_plain_riccati``, held against the kernel
+    route with main_path's tie rule.  The sweep is the CT kernel at
+    (10, 3, 4096, 32), one launch a loop iteration (the batch's largest
+    iteration count a solve); the discrete kernel is not launched."""
+    from ocs2_tpu_torch.models import ballbot
+    from ocs2_tpu_torch.solvers import ddp
+
+    problem, params, grid, x0s = ballbot_batch(torch)
+    batch, n = x0s.shape[0], grid.num_intervals
+    settings = ddp.DdpSettings(algorithm="slq", max_iterations=8)
+
+    def solve(x0, **kw):
+        sol = ddp.solve(problem, grid, x0, params, settings=settings, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        return sol
+
+    solve(x0s)  # warm-up
+    riccati_cuda.launch_count = riccati_ct_cuda.launch_count = 0
+    seconds, sols = [], []
+    for _ in range(solves):
+        t0 = time.perf_counter()
+        sols.append(solve(x0s))
+        seconds.append(time.perf_counter() - t0)
+    launches, k1_launches = riccati_ct_cuda.launch_count, riccati_cuda.launch_count
+    dims = riccati_ct_cuda.last_launch_dims
+    sol = sols[-1]
+    sweeps_run = sum(int(s.iterations.max()) for s in sols)
+    assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
+    assert k1_launches == 0, f"SLQ launched the discrete kernel {k1_launches} times"
+    assert dims == (batch, n, ballbot.NX, ballbot.NU, settings.riccati_substeps), dims
+    assert bool(torch.isfinite(sol.xs).all()) and bool(torch.isfinite(sol.us).all())
+    first = sol.history.merit[:, 0]
+    assert bool((sol.performance.merit <= first * (1 + 1e-6)).all())
+
+    sub = x0s[:256]
+    err, tied, tie_details = compare_with_ties(
+        torch, solve(sub), solve(sub, force_plain_riccati=True), "ballbot SLQ kernel vs plain")
+    sec = statistics.median(seconds)
+    its = sol.iterations.tolist()
+    rec = {
+        "phase": "slq_ballbot_b4096", "problem": "ballbot", "algorithm": "slq", "B": batch,
+        "N": n, "nx": ballbot.NX, "nu": ballbot.NU, "max_iterations": settings.max_iterations,
+        "riccati_substeps": settings.riccati_substeps, "rollout_substeps": settings._substeps,
+        "solves_timed": solves, "seconds_per_solve": sec, "solves_per_s": batch / sec,
+        "ilqr_solves_per_s_same_scenarios": main_run["solves_per_s"],
+        "iterations_histogram": {str(k): its.count(k) for k in sorted(set(its))},
+        "mean_iterations": float(sol.iterations.float().mean()),
+        "converged_share": float(sol.converged.float().mean()),
+        "median_cost": float(sol.performance.cost.median()),
+        "riccati_ct_launches": launches, "riccati_launches": k1_launches,
+        "kernel_vs_plain_solve_max_abs_err": err,
+        "kernel_vs_plain_tied_scenarios": tied, "kernel_vs_plain_ties": tie_details,
+    }
+    emit(rec)
+    return rec
+
+
+# The bouncing mass of tests/test_hybrid_ddp.py:126-176, written again here
+# (no import from tests/): x = (height, velocity), thrust input, a bounce at
+# h = 0 reverses the velocity with restitution 0.8 and counts the mode up.
+BALL_G, BALL_RESTITUTION = 9.81, 0.8
+HYB_T_FINAL, HYB_TARGET = 1.2, (0.8, 0.0)
+HYB_KW = dict(num_base_intervals=40, max_events=3, outer_rounds=3)
+
+
+def bouncing_mass(torch):
+    from ocs2_tpu_torch.core.reference import TargetTrajectories
+    from ocs2_tpu_torch.oc.hybrid_rollout import HybridSystem
+    from ocs2_tpu_torch.oc.problem import OptimalControlProblem, quadratic_cost
+
+    def flow(t, x, u, p, mode=None):
+        return torch.stack([x[..., 1], u[..., 0] - BALL_G], -1)
+
+    def bounce(t, x, p):
+        return torch.stack([1e-4 + 0.0 * x[..., 0], -BALL_RESTITUTION * x[..., 1]], -1)
+
+    system = HybridSystem(dynamics=flow, guard=lambda t, x, p, mode: x[..., 0],
+                          jump=lambda t, x, p, mode: (bounce(t, x, p), mode + 1))
+    problem = OptimalControlProblem(
+        dynamics=lambda t, x, u, p: flow(t, x, u, p), jump_map=bounce,
+        cost_terms=(quadratic_cost(np.diag([4.0, 0.1]).astype(np.float32),
+                                   0.05 * np.eye(1, dtype=np.float32), device=DEVICE),),
+        nx=2, nu=1)
+    params = {"target": TargetTrajectories.constant(
+        np.asarray(HYB_TARGET, np.float32), np.zeros(1, np.float32), device=DEVICE)}
+    return system, problem, params
+
+
+def hybrid_open_step(torch, riccati, problem, params, settings, hsol):
+    """The LQ data at a returned hybrid solve (its grid holds the intervals
+    the events cut short), on the card, and the float64 sweep of them on the
+    CPU.  The float64 ``kff`` is the Newton step the solve leaves open on
+    each interval; -(dv1 + dv2) is the merit decrease that step predicts."""
+    from ocs2_tpu_torch.oc.approx import approximate_lq
+    from ocs2_tpu_torch.solvers import ddp
+
+    lq = approximate_lq(problem, hsol.grid, hsol.ddp.xs, hsol.ddp.us, params,
+                        method=settings.integrator, substeps=settings._substeps)
+    coeffs = ddp._lq_to_coeffs(lq)
+    f64 = riccati.LqrCoeffs(*(leaf[0].double().cpu() for leaf in coeffs))
+    return coeffs, riccati._lqr_backward_single(
+        f64, torch.tensor(settings.reg_init, dtype=torch.float64))
+
+
+def hybrid_bouncing_mass(torch, riccati_cuda, riccati_ct_cuda, at_hyb, hybrid_out=None):
+    """``solve_state_triggered`` on the bouncing mass (t in [0, 1.2], 40 base
+    intervals, 3 event slots, 3 outer rounds, iLQR with 25 iterations and
+    min_rel_cost 1e-4) at B = 1: the sweep is the discrete kernel at
+    (2, 1, 1, 46) with strict pivots.  Checks the JAX test's assertions
+    (finite states, the grid's events within 4 rollout steps of the final
+    policy's, a bounce, a cost below free fall), a re-run through
+    ``force_plain_riccati`` (equal events to HYB_EVENT_ATOL, iterations equal
+    or tied, states and inputs on every interval within SOLVE_ATOL +
+    SOLVE_RTOL |value|, plus, on an interval where the solve leaves a Newton
+    step larger than SOLVE_ATOL open, that step), the kernel against its
+    plain version on the solve's own LQ data at K1's tolerance, and the JAX
+    package's record (HYBRID_RECORD: events, modes, cost, states, inputs)."""
+    from ocs2_tpu_torch.oc.hybrid_rollout import rollout_state_triggered
+    from ocs2_tpu_torch.oc.metrics import evaluate_trajectory
+    from ocs2_tpu_torch.oc.rollout import open_loop_policy, rollout
+    from ocs2_tpu_torch.ops import riccati
+    from ocs2_tpu_torch.solvers import ddp
+    from ocs2_tpu_torch.solvers.hybrid_ddp import solve_state_triggered
+
+    system, problem, params = bouncing_mass(torch)
+    settings = ddp.DdpSettings(max_iterations=25, min_rel_cost=1e-4)
+    x0 = torch.tensor([1.0, 0.0], device=DEVICE)
+
+    def solve(**kw):
+        sol = solve_state_triggered(system, problem, 0.0, HYB_T_FINAL, x0, params,
+                                    settings=settings, device=DEVICE, **HYB_KW, **kw)
+        torch.cuda.synchronize()
+        return sol
+
+    solve()  # warm-up
+    riccati_cuda.launch_count = riccati_ct_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
+    t0 = time.perf_counter()
+    sol = solve()
+    seconds = time.perf_counter() - t0
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    assert launches >= int(sol.ddp.iterations[0]) and launches > 0, launches
+    assert riccati_ct_cuda.launch_count == 0
+    assert dims == HYB_SHAPE[2:] + HYB_SHAPE[:2], dims
+
+    steps = 2 * HYB_KW["num_base_intervals"]
+    dt_roll = HYB_T_FINAL / steps
+    assert bool(torch.isfinite(sol.ddp.xs).all())
+    grid_ev = sol.event_times[torch.isfinite(sol.event_times)]
+    final_ev = sol.rollout.event_times[sol.rollout.event_mask > 0]
+    assert final_ev.numel() >= 1, "no bounce"
+    for ge in grid_ev.tolist():
+        assert float((final_ev - ge).abs().min()) < 4 * dt_roll, (grid_ev, final_ev)
+    xs0, us0 = rollout(problem, sol.grid, x0[None],
+                       open_loop_policy(torch.zeros_like(sol.ddp.us[0])), params)
+    free_fall = float(evaluate_trajectory(problem, sol.grid, xs0, us0, params).cost[0])
+    cost = float(sol.ddp.performance.cost[0])
+    assert cost < free_fall, (cost, free_fall)
+
+    plain = solve(force_plain_riccati=True)
+    assert bool((torch.isfinite(plain.event_times) == torch.isfinite(sol.event_times)).all())
+    fin = torch.isfinite(sol.event_times)
+    plain_event_err = float((plain.event_times[fin] - sol.event_times[fin]).abs().max())
+    assert plain_event_err <= HYB_EVENT_ATOL, plain_event_err
+    # Equal iterations, or a tie at the final round's stationary iterate
+    # (main_path's rule: merits within 1e-6).
+    k_it, p_it = int(sol.ddp.iterations[0]), int(plain.ddp.iterations[0])
+    k_merit, p_merit = float(sol.ddp.performance.merit[0]), float(plain.ddp.performance.merit[0])
+    merit_rel = abs(k_merit - p_merit) / abs(p_merit)
+    assert k_it == p_it or merit_rel <= 1e-6, ("hybrid kernel vs plain", k_it, p_it, merit_rel)
+    xs_err = (sol.ddp.xs - plain.ddp.xs).abs()
+    assert bool((xs_err <= SOLVE_ATOL + SOLVE_RTOL * plain.ddp.xs.abs()).all()), float(xs_err.max())
+
+    # The kernel on the solve's own data: the LQ approximation at the kernel
+    # route's solution, through K1 (strict, B = 1) and its plain version at
+    # K1's RTOL / ATOL; both beside the float64 sweep of the same data.
+    coeffs, k64 = hybrid_open_step(torch, riccati, problem, params, settings, sol)
+    reg = torch.full((1,), settings.reg_init, device=DEVICE)
+    k_out = riccati.lqr_backward(coeffs, reg)
+    p_out = riccati._lqr_backward_batched(coeffs, reg, strict=True)
+    torch.cuda.synchronize()
+    data_err, bad = compare_fields(torch, k_out, p_out)
+    assert not bad, ("K1 vs its plain version on the hybrid solve's data", bad)
+    from_f64 = {name: max(float((getattr(o, f)[0].double().cpu() - getattr(k64, f)).abs().max())
+                          for f in ("gains", "kff", "value_S", "value_s"))
+                for name, o in (("kernel", k_out), ("plain", p_out))}
+
+    # The inputs, on every interval.  Each route stops when its merit falls
+    # by less than min_rel_cost; the Newton step still open at its solution
+    # (float64) then bounds how far the input of an interval is determined.
+    # Where that step exceeds SOLVE_ATOL (an interval a bounce cuts to a few
+    # ms, whose input weighs R dt), the routes may differ by it: the whole
+    # open step must predict a decrease under min_rel_cost (the solver was
+    # entitled to stop), and on every other interval the bound is SOLVE_ATOL
+    # + SOLVE_RTOL |u| alone.
+    _, p64 = hybrid_open_step(torch, riccati, problem, params, settings, plain)
+    open_step = torch.maximum(k64.kff.abs(), p64.kff.abs()).float().to(DEVICE)[None]
+    predicted = [float(-(s64.dv1 + s64.dv2)) / abs(m)
+                 for s64, m in ((k64, k_merit), (p64, p_merit))]
+    assert max(predicted) <= settings.min_rel_cost, ("open step's predicted decrease", predicted)
+    undetermined = open_step > SOLVE_ATOL
+    slack = torch.where(undetermined, open_step, torch.zeros_like(open_step))
+
+    def us_within(us, ref_us):
+        err = (us - ref_us).abs()
+        ok = err <= SOLVE_ATOL + SOLVE_RTOL * ref_us.abs() + slack
+        return bool(ok.all()), float(err[~undetermined].max()), (
+            float(err[undetermined].max()) if bool(undetermined.any()) else 0.0)
+
+    us_ok, us_det, us_undet = us_within(sol.ddp.us, plain.ddp.us)
+    assert us_ok, ("hybrid kernel vs plain: us", us_det, us_undet)
+    open_rows = torch.nonzero(undetermined[0].any(-1)).flatten().tolist()
+    plain_err = {"xs": float(xs_err.max()), "us_determined_intervals": us_det,
+                 "us_undetermined_intervals": us_undet, "merit_rel": merit_rel}
+    open_info = {
+        "intervals": open_rows, "dt": [float(sol.grid.dts[k]) for k in open_rows],
+        "open_step": [float(open_step[0, k].max()) for k in open_rows],
+        "largest_open_step_elsewhere": float(open_step[~undetermined].max()),
+        "predicted_rel_decrease_kernel_plain": predicted,
+        "k1_vs_plain_on_solve_data_max_abs_err": data_err,
+        "max_abs_diff_from_float64": from_f64,
+    }
+
+    with np.load(HYBRID_RECORD) as f:
+        ref = {k: f[k] for k in f.files}
+    ev = sol.event_times.cpu().numpy()
+    assert np.array_equal(np.isfinite(ev), np.isfinite(ref["event_times"]))
+    fin_ev = np.isfinite(ev)
+    ref_event_err = float(np.abs(ev[fin_ev] - ref["event_times"][fin_ev]).max())
+    assert ref_event_err <= HYB_EVENT_ATOL, ref_event_err
+    assert np.array_equal(sol.mode_sequence.cpu().numpy(), ref["mode_sequence"])
+    ref_cost_rel = abs(cost - float(ref["cost"])) / abs(float(ref["cost"]))
+    assert ref_cost_rel <= HYB_COST_RTOL, ref_cost_rel
+    ref_xs = torch.as_tensor(ref["xs"], device=DEVICE)[None]
+    ref_xs_err = float((sol.ddp.xs - ref_xs).abs().max())
+    assert bool(((sol.ddp.xs - ref_xs).abs() <= SOLVE_ATOL + SOLVE_RTOL * ref_xs.abs()).all()), (
+        "hybrid vs the JAX record: xs", ref_xs_err)
+    ref_us_ok, ref_us_det, ref_us_undet = us_within(
+        sol.ddp.us, torch.as_tensor(ref["us"], device=DEVICE)[None])
+    assert ref_us_ok, ("hybrid vs the JAX record: us", ref_us_det, ref_us_undet)
+
+    policy = lambda t, x, k: torch.zeros(1, device=DEVICE)  # noqa: E731
+    rollout_st = lambda: rollout_state_triggered(  # noqa: E731
+        system, 0.0, x0, policy, dt_roll, steps, params)
+    _, rollout_ms = timed_stage(torch, rollout_st, reps=3)
+    rec = {
+        "phase": "hybrid_bouncing_mass", "B": 1, "N": HYB_SHAPE[3], "nx": 2, "nu": 1,
+        **HYB_KW, "rollout_steps": steps, "seconds_per_solve": seconds,
+        "rounds_run": sol.rounds_run, "final_round_iterations": int(sol.ddp.iterations[0]),
+        "event_times": [float(v) for v in ev], "mode_sequence": sol.mode_sequence.tolist(),
+        "event_drift": [float(v) for v in sol.event_drift.cpu()],
+        "cost": cost, "free_fall_cost": free_fall, "riccati_launches": launches,
+        "kernel_vs_plain_event_max_abs_diff": plain_event_err,
+        "kernel_vs_plain_solve_max_abs_err": plain_err,
+        "kernel_vs_plain_iterations": [k_it, p_it],
+        "reference_event_max_abs_diff": ref_event_err, "reference_cost_rel_diff": ref_cost_rel,
+        "reference_xs_max_abs_diff": ref_xs_err,
+        "reference_us_max_abs_diff": {"determined_intervals": ref_us_det,
+                                      "undetermined_intervals": ref_us_undet},
+        "open_newton_step": open_info,
+        "state_triggered_rollout_ms": rollout_ms,
+        "kernel_ms": at_hyb["kernel_ms"],
+    }
+    if hybrid_out:
+        with open(hybrid_out, "w") as f:
+            json.dump({"event_times": rec["event_times"], "mode_sequence": rec["mode_sequence"],
+                       "cost": cost, "xs": sol.ddp.xs[0].tolist(),
+                       "us": sol.ddp.us[0].tolist()}, f)
+    emit(rec)
+    return rec
+
+
+# tests/test_hybrid.py:95-148's switched linear system, written again here.
+SWITCH_A = (((-0.1, 1.0), (0.0, -0.2)), ((-0.5, 0.0), (1.0, -0.1)))
+SWITCH_B = ((0.0,), (1.0,))
+SWITCH_THETA0, SWITCH_ITERATIONS = 0.9, 5
+
+
+def switched_problem(torch):
+    from ocs2_tpu_torch.oc.problem import OptimalControlProblem
+
+    a_modes = torch.tensor(SWITCH_A, device=DEVICE)
+    b = torch.tensor(SWITCH_B, device=DEVICE)
+
+    def dynamics(t, x, u, p):
+        mode = p["mode"]  # one index, or one per node of a batch of nodes
+        a = a_modes.index_select(0, mode.reshape(-1)).reshape(mode.shape + (2, 2))
+        return (a @ x.unsqueeze(-1)).squeeze(-1) + u @ b.T
+
+    def cost(t, x, u, p):
+        return 0.5 * torch.sum(x * x, -1) + 0.5 * torch.sum(u * u, -1)
+
+    return OptimalControlProblem(dynamics=dynamics, cost_terms=(cost,), nx=2, nu=1)
+
+
+def switch_time_exp0(torch, riccati_cuda, at_switch):
+    """``optimize_switch_times`` (SQP, 15 iterations, N = 40 over [0, 2]) for
+    5 upper-level iterations from theta = 0.9; the sweep is the discrete
+    kernel at (2, 1, 1, 40) with strict pivots.  ``switch_time_gradients`` at
+    theta0 is held against a central difference of the solved cost (eps 0.02,
+    within 25 %, tests/test_hybrid.py's bound), and the gradient, the
+    difference's two costs and every upper iterate's event time and cost
+    against the JAX package's record (SWITCH_RECORD; ROADMAP §3: there the
+    gradient's sign is the difference's opposite, and the loop climbs)."""
+    from ocs2_tpu_torch.oc.time_discretization import make_time_grid
+    from ocs2_tpu_torch.solvers import sqp, switch_time
+
+    problem = switched_problem(torch)
+    x0 = torch.tensor([1.0, 0.0], device=DEVICE)
+    settings = sqp.SqpSettings(max_iterations=15)
+    n = SWITCH_SHAPE[3]
+
+    def solve_fn(grid, x, p):
+        return sqp.solve(problem, grid, x, p, settings=settings, device=DEVICE)
+
+    def solve_at(theta):
+        grid = make_time_grid(0.0, 2.0, n, event_times=[theta], mode_sequence=[0, 1])
+        return solve_fn(grid, x0, {}), grid
+
+    sol, grid = solve_at(SWITCH_THETA0)
+    g = float(switch_time.switch_time_gradients(problem, grid, sol.xs, sol.us, sol.value_s,
+                                                {}).sum())
+    cost_at = lambda th: float(solve_at(th)[0].performance.cost[0])  # noqa: E731
+    cost_plus, cost_minus = cost_at(SWITCH_THETA0 + SWITCH_FD_EPS), cost_at(SWITCH_THETA0 - SWITCH_FD_EPS)
+    fd = (cost_plus - cost_minus) / (2 * SWITCH_FD_EPS)
+    assert abs(g - fd) < SWITCH_FD_SHARE * max(abs(fd), 0.1), (g, fd)
+    with np.load(SWITCH_RECORD) as f:
+        ref = {k: f[k] for k in f.files}
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    ref_g = float(ref["gradient_at_theta0"])
+    assert abs(g - ref_g) <= SWITCH_GRAD_ATOL + SWITCH_GRAD_RTOL * abs(ref_g), (g, ref_g)
+    fd_cost_rel = max(rel(cost_plus, float(ref["cost_plus"])), rel(cost_minus, float(ref["cost_minus"])))
+    assert fd_cost_rel <= SWITCH_COST_RTOL, fd_cost_rel
+
+    riccati_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
+    t0 = time.perf_counter()
+    res = switch_time.optimize_switch_times(
+        problem, solve_fn, x0, {}, 0.0, 2.0, n, [SWITCH_THETA0], [0, 1],
+        iterations=SWITCH_ITERATIONS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    assert launches > 0 and dims == SWITCH_SHAPE[2:] + SWITCH_SHAPE[:2], (launches, dims)
+    costs = [c for _, c in res.history]
+    thetas = [float(t[0]) for t, _ in res.history]
+    assert len(costs) == len(ref["cost_history"]) == SWITCH_ITERATIONS
+    theta_err = float(np.abs(np.asarray(thetas) - ref["theta_history"]).max())
+    cost_rel = float((np.abs(np.asarray(costs) - ref["cost_history"]) / np.abs(ref["cost_history"])).max())
+    assert theta_err <= SWITCH_THETA_ATOL, ("switch times vs the JAX record", thetas, theta_err)
+    assert cost_rel <= SWITCH_COST_RTOL, ("costs vs the JAX record", costs, cost_rel)
+    assert abs(float(res.event_times[0]) - float(ref["event_time_found"])) <= SWITCH_THETA_ATOL
+    assert rel(res.cost, float(ref["cost"])) <= SWITCH_COST_RTOL, (res.cost, float(ref["cost"]))
+    rec = {
+        "phase": "switch_time_exp0", "B": 1, "N": n, "nx": 2, "nu": 1,
+        "upper_iterations": SWITCH_ITERATIONS, "theta0": SWITCH_THETA0,
+        "gradient_at_theta0": g, "finite_difference_at_theta0": fd,
+        "event_time_found": float(res.event_times[0]), "cost": res.cost,
+        "cost_history": costs, "theta_history": thetas, "reference_gradient": ref_g,
+        "reference_finite_difference": float(ref["finite_difference_at_theta0"]),
+        "reference_theta_max_abs_diff": theta_err, "reference_cost_max_rel_diff": cost_rel,
+        "reference_fd_cost_max_rel_diff": fd_cost_rel, "seconds": seconds, "riccati_launches": launches, "kernel_ms": at_switch["kernel_ms"],
+    }
+    emit(rec)
+    return rec
+
+
+def profile_slq(torch):
+    """Where one SLQ iteration of the b4096 lane spends its time: host-clock
+    medians of approximate_lq_ct, the CT sweep (kernel), the line search's
+    rollout of 8 candidates and their evaluation; the card's busy share over
+    one solve."""
+    from ocs2_tpu_torch.oc.approx import approximate_lq_ct
+    from ocs2_tpu_torch.oc.metrics import evaluate_trajectory
+    from ocs2_tpu_torch.oc.rollout import ddp_search_policy, open_loop_policy, rollout
+    from ocs2_tpu_torch.ops import riccati_ct
+    from ocs2_tpu_torch.solvers import ddp
+
+    problem, params, grid, x0s = ballbot_batch(torch)
+    batch, n, nu = x0s.shape[0], grid.num_intervals, problem.nu
+    settings = ddp.DdpSettings(algorithm="slq", max_iterations=8)
+    ro = lambda x0, pol: rollout(problem, grid, x0, pol, params, substeps=settings._substeps)  # noqa: E731
+    alphas = 0.5 ** torch.arange(8, dtype=torch.float32, device=DEVICE)
+    timed = lambda fn: timed_stage(torch, fn)  # noqa: E731
+    stages = {}
+    (xs, us), stages["initial_rollout_ms"] = timed(
+        lambda: ro(x0s, open_loop_policy(torch.zeros((batch, n, nu), device=DEVICE))))
+    ct, stages["approximate_lq_ct_ms"] = timed(
+        lambda: approximate_lq_ct(problem, grid, xs, us, params))
+    reg = torch.full((batch,), 1e-6, device=DEVICE)
+    sol, stages["riccati_ct_backward_ms"] = timed(
+        lambda: riccati_ct.slq_backward(ct, reg, settings.riccati_substeps))
+    policy = ddp_search_policy(us, sol.kff, sol.gains, xs, alphas)
+    x0c = x0s[:, None, :].expand(batch, 8, x0s.shape[1])
+    (xs_c, us_c), stages["line_search_rollout_ms"] = timed(lambda: ro(x0c, policy))
+    _, stages["evaluate_candidates_ms"] = timed(
+        lambda: evaluate_trajectory(problem, grid, xs_c, us_c, params))
+    busy = device_busy(torch, lambda: ddp.solve(problem, grid, x0s, params, settings=settings,
+                                                device=DEVICE))
+    emit({"phase": "profile", "path": "slq_ballbot_b4096", "B": batch, "N": n,
+          "stages": stages, "profiler": busy})
+
+
 def terrain_check(torch):
     """The elevation-map problem's in-solver gathers and plane fits on the
     card against the same calls on the CPU in this process: approximate_lq
@@ -2125,6 +2726,9 @@ def main() -> int:
     ap.add_argument("--ipm-out", metavar="PATH",
                     help="write the IPM chains' tick states, iterations and merits and the "
                          "cold solve as JSON (for tools/legged_ipm_reference.py --compare)")
+    ap.add_argument("--hybrid-out", metavar="PATH",
+                    help="write the hybrid solve's events, modes, cost, states and inputs as "
+                         "JSON (for tools/hybrid_reference.py --compare)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2134,22 +2738,29 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
 
-    from ocs2_tpu_torch.ops import riccati, riccati_cuda
+    from ocs2_tpu_torch.ops import _build, riccati, riccati_ct, riccati_ct_cuda, riccati_cuda
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    # Every library of both kernels, one nvcc each, all started together.
     t0 = time.perf_counter()
-    pairs = sorted({(nx, nu) for nx, nu, _, _ in KERNEL_SHAPES})
-    riccati_cuda.build(pairs, verbose=args.verbose_build)
-    emit({"phase": "build", "libraries": [f"nx{a}_nu{b}" for a, b in pairs],
+    pairs = sorted({(nx, nu) for nx, nu, _, _ in KERNEL_SHAPES + [HYB_SHAPE]})
+    ct_pairs = sorted({(nx, nu) for nx, nu, _, _, _ in CT_SHAPES})
+    _build.build_libraries(
+        riccati_cuda.build_jobs(pairs) + riccati_ct_cuda.build_jobs(ct_pairs),
+        verbose=args.verbose_build)
+    emit({"phase": "build", "libraries": [f"riccati_backward nx{a}_nu{b}" for a, b in pairs]
+          + [f"riccati_ct_backward nx{a}_nu{b}" for a, b in ct_pairs],
           "seconds": time.perf_counter() - t0})
 
-    emit({"phase": "kernels", "kernels": ["riccati_backward"],
+    emit({"phase": "kernels", "kernels": ["riccati_backward", "riccati_ct_backward"],
           "shapes": [list(s) for s in KERNEL_SHAPES + [STRICT_SHAPE, PERC_SHAPE, LOOP_SHAPE,
-                                                       CK_TROT_SHAPE, SLP_SHAPE]]})
+                                                       CK_TROT_SHAPE, SLP_SHAPE, HYB_SHAPE,
+                                                       SWITCH_SHAPE]],
+          "ct_shapes": [list(s[:4]) for s in CT_SHAPES]})
     checks = [
         check_kernel(torch, riccati, riccati_cuda, shape, seed=11 + i, timed=i < 3)
         for i, shape in enumerate(KERNEL_SHAPES)
@@ -2164,6 +2775,14 @@ def main() -> int:
     check_strict_nan(torch, riccati, CK_TROT_SHAPE, seed=26, node=17)
     # The SLP phase's SQP check (ballbot at B = 256).
     at_slp = check_kernel(torch, riccati, riccati_cuda, SLP_SHAPE, seed=27, timed=True)
+    # The hybrid and switch-time phases' shapes (2 states, 1 input, B = 1).
+    at_hyb = check_kernel(torch, riccati, riccati_cuda, HYB_SHAPE, seed=28, timed=True)
+    at_switch = check_kernel(torch, riccati, riccati_cuda, SWITCH_SHAPE, seed=29, timed=True)
+    # The continuous-time sweep (SLQ).
+    ct_checks = [check_ct_kernel(torch, riccati_ct, riccati_ct_cuda, shape, seed=31 + i, timed=True)
+                 for i, shape in enumerate(CT_SHAPES)]
+    check_ct_nan(torch, riccati_ct, CT_SHAPES[1], seed=34, scenario=0, node=60)
+    check_ct_nan(torch, riccati_ct, CT_SHAPES[2], seed=35, scenario=5, node=3)
     if args.skip_main_path:
         return 0
 
@@ -2187,7 +2806,11 @@ def main() -> int:
     ipm_b1 = legged_ipm_tick_b1(torch, riccati_cuda, ipm_cfg, ipm_out=args.ipm_out)
     ipm_b256 = legged_ipm_b256(torch, riccati_cuda, ipm_cfg)
     slp_run = slp_ballbot_b256(torch, riccati_cuda)
+    slq = slq_ballbot_b4096(torch, riccati_cuda, riccati_ct_cuda, run)
+    hyb = hybrid_bouncing_mass(torch, riccati_cuda, riccati_ct_cuda, at_hyb, args.hybrid_out)
+    switch = switch_time_exp0(torch, riccati_cuda, at_switch)
     if args.profile:
+        profile_slq(torch)
         profile_main_path(torch)
         profile_legged(torch, cfg, LEGGED_BATCH)
         profile_legged(torch, cfg, 1)
@@ -2208,9 +2831,10 @@ def main() -> int:
         "replaces": "ocs2_tpu/ops/riccati_pallas.py:189",
         "launches": sum(r["riccati_launches"]
                         for r in (run, b1, b256, closed, quad, perc, loop, ck_loop, ck_trot,
-                                  ipm_b1, ipm_b256)) + slp_run["sqp_check_riccati_launches"],
-        "max_abs_err": max(c["max_abs_err"]
-                           for c in checks + [at_b1, at_perc, at_loop, at_trot, at_slp]),
+                                  ipm_b1, ipm_b256, hyb, switch))
+        + slp_run["sqp_check_riccati_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in checks + [
+            at_b1, at_perc, at_loop, at_trot, at_slp, at_hyb, at_switch]),
         "shape": dict(zip(("nx", "nu", "B", "N"), MAIN_SHAPE)),
         "ms": at_main["kernel_ms"], "plain_ms": at_main["plain_ms"],
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
@@ -2275,7 +2899,39 @@ def main() -> int:
              "share_of_solve": slp_run["sqp_check_riccati_launches"] * 1e-3 * at_slp["kernel_ms"]
              / slp_run["sqp_seconds_per_solve"],
              **{k: at_slp[k] for k in shape_keys}},
+            {"path": "hybrid_bouncing_mass", "launches": hyb["riccati_launches"],
+             "launches_per_solve": hyb["riccati_launches"],
+             "share_of_solve": hyb["riccati_launches"] * 1e-3 * at_hyb["kernel_ms"]
+             / hyb["seconds_per_solve"],
+             "single_sweep_ms": at_hyb["single_sweep_ms"],
+             **{k: at_hyb[k] for k in shape_keys}},
+            {"path": "switch_time_exp0", "launches": switch["riccati_launches"],
+             "share_of_run": switch["riccati_launches"] * 1e-3 * at_switch["kernel_ms"]
+             / switch["seconds"],
+             "single_sweep_ms": at_switch["single_sweep_ms"],
+             **{k: at_switch[k] for k in shape_keys}},
         ],
+    }, {
+        "name": "riccati_ct_backward", "route": "cuda",
+        "source": "ocs2_tpu_torch/csrc/riccati_ct_backward.cu",
+        # XLA code in the JAX package (the SLQ sweep), not a Pallas kernel.
+        "replaces": "ocs2_tpu/ops/riccati_ct.py:80",
+        "launches": slq["riccati_ct_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in ct_checks),
+        "shape": dict(zip(("nx", "nu", "B", "N"), CT_SHAPES[0][:4])),
+        "ms": ct_checks[0]["kernel_ms"], "plain_ms": ct_checks[0]["plain_ms"],
+        "bound_ms": ct_checks[0]["bound_ms"], "bound_by": ct_checks[0]["bound_by"],
+        "library_ms": None,
+        "paths": [
+            {"path": "slq_ballbot_b4096", "launches": slq["riccati_ct_launches"],
+             "launches_per_solve": slq["riccati_ct_launches"] / slq["solves_timed"],
+             "share_of_solve": slq["riccati_ct_launches"] / slq["solves_timed"]
+             * 1e-3 * ct_checks[0]["kernel_ms"] / slq["seconds_per_solve"],
+             **{k: ct_checks[0][k] for k in shape_keys if k in ct_checks[0]}},
+        ],
+        "checks": [{k: c[k] for k in ("nx", "nu", "B", "N", "kernel_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "bound_term", "bytes_ms", "flops_ms",
+                                      "chain_ms", "max_abs_err")} for c in ct_checks],
     }]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

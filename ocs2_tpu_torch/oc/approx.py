@@ -5,8 +5,9 @@ written for a single node of a single scenario and mapped with
 ``torch.func.vmap`` over the nodes of the horizon and over the scenarios of
 the batch; the Jacobians of the discretized flow are ``torch.func.jacfwd``
 inside that map, the generic cost/constraint fallbacks are
-``torch.func.hessian`` / ``jacrev``.  The continuous-time LQ data of the SLQ
-backward pass is not ported yet.
+``torch.func.hessian`` / ``jacrev``.  ``approximate_lq_ct`` gives the
+continuous-time LQ data of the SLQ backward pass (``ops/riccati_ct.py``) the
+same way.
 """
 from __future__ import annotations
 
@@ -344,3 +345,65 @@ def approximate_lq(
         state_ineq=_vector_from("sineq", out),
         final_eq=_vector_from("feq", out),
     )
+
+
+def approximate_lq_ct(
+    problem: OptimalControlProblem,
+    grid: TimeGrid,
+    xs: Tensor,  # [B, N+1, nx]
+    us: Tensor,  # [B, N, nu]
+    params: Any,
+):
+    """Continuous-time LQ data of a batch for the SLQ backward pass: per node
+    the linearization A = df/dx, B = df/du of the flow (not of its
+    discretization) and the running-cost RATE quadratization (dt = 1, no jump
+    term), the input at node N repeating the last one; per interval the
+    jump-map linearization (post-jump params) and the pre-jump cost quadratic
+    (dt = 0, jump mask 1); the terminal quadratic.  Returns
+    ``ops.riccati_ct.CtLqCoeffs`` with leaves [B, ...] and the grid's shared
+    ``times`` / ``is_jump``, WITHOUT the Hessian correction (callers
+    convexify).  ``params`` as in ``approximate_lq``."""
+    from ..ops.riccati_ct import CtLqCoeffs
+
+    grid = grid.device(xs.device)
+    n = grid.num_intervals
+    nu = problem.nu
+
+    if isinstance(params, dict):
+        shared = {k: v for k, v in params.items() if k not in PER_SCENARIO_KEYS}
+        per_scenario = {k: v for k, v in params.items() if k in PER_SCENARIO_KEYS}
+    else:
+        shared, per_scenario = params, {}
+
+    def scenario(xs_b, us_b, p_b):
+        p_all = dict(shared, **p_b) if isinstance(shared, dict) else shared
+        us_ext = torch.cat([us_b, us_b[-1:]], dim=0)  # value at node N
+
+        def node(k, t, x, u):
+            p = node_params(p_all, grid, k)
+            a = torch.func.jacfwd(lambda xx: problem.dynamics(t, xx, u, p))(x).to(x.dtype)
+            b = torch.func.jacfwd(lambda uu: problem.dynamics(t, x, uu, p))(u).to(x.dtype)
+            rate = quadratize_running_cost(problem, t, 1.0, x, u, p, 0.0)
+            return a, b, rate.dfdxx, rate.dfdx, rate.dfduu, rate.dfdu, rate.dfdux
+
+        def jump(k, t, x, u):
+            p_next = node_params(p_all, grid, k + 1)
+            aj = torch.func.jacfwd(lambda xx: problem.apply_jump(t, xx, p_next))(x).to(x.dtype)
+            pj = quadratize_running_cost(
+                problem, t, 0.0, x, u, node_params(p_all, grid, k), 1.0)
+            return aj, pj.dfdxx, pj.dfdx
+
+        nodes = torch.arange(n + 1, device=xs.device)
+        a_n, b_n, qm, qv, rm, rv, pm = torch.func.vmap(node)(nodes, grid.times, xs_b, us_ext)
+        a_j, q_j, qv_j = torch.func.vmap(jump)(
+            nodes[:-1], grid.times[:-1], xs_b[:-1], us_b)
+        cost_f = quadratize_final_cost(
+            problem, grid.times[n], xs_b[n], node_params(p_all, grid, n), nu)
+        return a_n, b_n, qm, qv, rm, rv, pm, a_j, q_j, qv_j, cost_f.dfdxx, cost_f.dfdx
+
+    if per_scenario:
+        out = torch.func.vmap(scenario)(xs, us, per_scenario)
+    else:
+        out = torch.func.vmap(lambda a, b: scenario(a, b, {}))(xs, us)
+    out = [leaf.contiguous() for leaf in out]
+    return CtLqCoeffs(*out, times=grid.times.contiguous(), is_jump=grid.is_jump.contiguous())

@@ -5,7 +5,8 @@ built on the host with numpy per solve (O(N) on ~100 floats); event times
 inside the horizon appear as duplicated grid times, and the transition out of
 a pre-event node is the jump map (dt = 0) instead of integration.
 ``TimeGrid.device()`` gives the tensor view a solver indexes on the device.
-The traced event-grid construction is not ported yet.
+``make_event_grid_traced`` builds a grid from event times held in tensors
+(state-triggered solving): shapes are static, values are data.
 """
 from __future__ import annotations
 
@@ -114,3 +115,50 @@ def make_time_grid(
 
 def uniform_grid(t0: float, tf: float, num_intervals: int) -> TimeGrid:
     return make_time_grid(t0, tf, num_intervals)
+
+
+def make_event_grid_traced(
+    t0,
+    tf,
+    num_base_intervals: int,
+    event_times,  # [E] detected event times; inactive slots >= tf (or inf)
+    mode_sequence,  # [E+1] integer mode between consecutive events
+    dtype=torch.float32,
+    device="cuda",
+) -> TimeGrid:
+    """Grid construction from event times held in tensors, with no host
+    read: a fixed budget of E = len(event_times) event slots, each active
+    event a duplicated node pair (a zero-length jump interval), each inactive
+    slot (outside (t0, tf)) a zero-length NON-jump pair parked at tf (a no-op
+    for integration, cost and Riccati).  N = num_base_intervals + 2 E
+    whatever fired.  An event on a base node is nudged off it by 2e-6 of the
+    horizon, so that a duplicated time marks exactly one jump.  Leaves are
+    tensors on ``device`` (modes int64)."""
+    ev_in = torch.as_tensor(event_times, device=device)
+    e = ev_in.shape[0]
+    t0 = torch.as_tensor(t0, dtype=dtype, device=device)
+    tf = torch.as_tensor(tf, dtype=dtype, device=device)
+    base = torch.linspace(0.0, 1.0, num_base_intervals + 1, dtype=dtype, device=device)
+    base = t0 + (tf - t0) * base
+    eps = 1e-6 * (tf - t0)
+    active = (ev_in > t0 + eps) & (ev_in < tf - eps)
+    ev = torch.where(active, ev_in.to(dtype), tf)
+    # torch.round, like jnp.round, rounds half to even.
+    snap = torch.round((ev - t0) / torch.clamp((tf - t0) / num_base_intervals, min=1e-12))
+    on_node = torch.abs(ev - (t0 + snap * (tf - t0) / num_base_intervals)) < eps
+    ev = torch.where(active & on_node, ev + 2 * eps, ev)
+
+    times = torch.sort(torch.cat([base, ev, ev])).values
+    dts = times[1:] - times[:-1]
+    dup = dts <= 0.0
+    interior = times[:-1] < tf - eps
+    first_of_run = torch.cat([dup[:1], dup[1:] & ~dup[:-1]])
+    is_jump = (dup & interior & first_of_run).to(dtype)
+
+    jump_count = torch.cat([
+        torch.zeros((1,), dtype=torch.int64, device=device),
+        torch.cumsum(is_jump.to(torch.int64), dim=0),
+    ])
+    mode_sequence = torch.as_tensor(mode_sequence, device=device).to(torch.int64)
+    modes = mode_sequence[torch.clamp(jump_count, max=e)]
+    return TimeGrid(times=times, is_jump=is_jump, modes=modes)

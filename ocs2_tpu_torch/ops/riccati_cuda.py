@@ -118,11 +118,15 @@ def _defines(nx: int, nu: int) -> Tuple[str, ...]:
     return (f"-DNX={nx}", f"-DNU={nu}", *EXTRA_DEFINES)
 
 
+def build_jobs(pairs: Iterable[Tuple[int, int]]):
+    """The (source, defines) jobs of several (nx, nu) pairs, for
+    ``_build.build_libraries``, which starts the compilers together."""
+    return [(SOURCE, _defines(nx, nu)) for nx, nu in pairs]
+
+
 def build(pairs: Iterable[Tuple[int, int]], verbose: bool = False) -> None:
     """Build the libraries of several (nx, nu) pairs at once, in parallel."""
-    _build.build_libraries(
-        [(SOURCE, _defines(nx, nu)) for nx, nu in pairs], verbose=verbose
-    )
+    _build.build_libraries(build_jobs(pairs), verbose=verbose)
 
 
 _LIBRARIES: Dict[Tuple[int, int], ctypes.CDLL] = {}

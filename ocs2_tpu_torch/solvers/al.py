@@ -67,8 +67,12 @@ _INEQ_PEN = pen.al_hinge_inequality()
 
 
 def _node_rows(lmbd: Tensor, p) -> Tensor:
-    """Multiplier rows [..., N, m] of the node(s) named by p["node"]."""
-    return lmbd[..., p["node"], :]
+    """Multiplier rows [..., N, m] of the node(s) named by p["node"].  A node
+    past the last row reads the last row, as the reference's gather clamps
+    (the SLQ rate quadratization evaluates the running cost at node N)."""
+    node, last = p["node"], lmbd.shape[-2] - 1
+    node = node.clamp(max=last) if isinstance(node, torch.Tensor) else min(node, last)
+    return lmbd[..., node, :]
 
 
 def augment_problem(

@@ -6,10 +6,10 @@ Hamiltonian query surface (``oc/queries.py``).  The solvers return every
 field with a leading scenario dim; the queries read one scenario
 (``scenario=0`` unless asked).
 
-``"sqp"``, ``"ipm"``, ``"slp"`` and ``"ilqr"`` are available.  The
-continuous-time SLQ backward pass belongs to a later slice: ``"slq"`` raises
-``NotImplementedError`` at construction.  PIPG (SLP) computes no value
-function: the queries of an SLP solve read NaN.
+``"sqp"``, ``"ipm"``, ``"slp"``, ``"ilqr"`` and ``"slq"`` are available (the
+last two are ``solvers/ddp.py`` with the discrete or the continuous-time
+Riccati sweep).  PIPG (SLP) computes no value function: the queries of an SLP
+solve read NaN.
 """
 from __future__ import annotations
 
@@ -34,9 +34,9 @@ ALGORITHMS = {
     "ipm": _ipm.IpmSettings,
     "slp": _slp.SlpSettings,
     "ilqr": _ddp.DdpSettings,
+    "slq": _ddp.DdpSettings,
 }
 _MULTIPLE_SHOOTING = {"sqp": _sqp.solve, "ipm": _ipm.solve, "slp": _slp.solve}
-_LATER = {"slq": "the continuous-time SLQ backward pass (ops/riccati_ct.py)"}
 
 
 class Solver:
@@ -56,11 +56,6 @@ class Solver:
         initializer: Optional[Initializer] = None,
         device="cuda",
     ):
-        if algorithm in _LATER:
-            raise NotImplementedError(
-                f"algorithm={algorithm!r}: {_LATER[algorithm]} belongs to a later "
-                f"slice of the port; one of {sorted(ALGORITHMS)} is available"
-            )
         if algorithm not in ALGORITHMS:
             raise ValueError(
                 f"unknown algorithm {algorithm!r}; one of {sorted(ALGORITHMS)}"
@@ -69,7 +64,7 @@ class Solver:
         self.algorithm = algorithm
         if settings is None:
             settings = ALGORITHMS[algorithm]()
-        if algorithm == "ilqr":
+        if algorithm in ("ilqr", "slq"):
             settings = dataclasses.replace(settings, algorithm=algorithm)
         self.settings = settings
         self.initializer = initializer or DefaultInitializer()
@@ -83,7 +78,7 @@ class Solver:
             xs0, us0 = self.initializer(grid, x0.reshape(-1, x0.shape[-1])[0], self.problem.nu)
             xs_init = xs0 if xs_init is None else xs_init
             us_init = us0 if us_init is None else us_init
-        if self.algorithm == "ilqr":
+        if self.algorithm in ("ilqr", "slq"):
             sol = _ddp.solve(
                 self.problem, grid, x0.reshape(-1, x0.shape[-1]), params,
                 us_init=us_init, settings=self.settings, device=self.device,

@@ -12,13 +12,16 @@ updated with ``torch.where(active, new, old)``, and one host read of
 finished scenario.
 
 Per iteration: one mapped LQ approximation of all nodes of all scenarios
-(``oc/approx.py``), the Riccati backward sweep (``ops/riccati.lqr_backward``:
-the CUDA kernel on the card), a line search that rolls out the whole
+(``oc/approx.py``), the backward sweep, a line search that rolls out the whole
 step-size grid of every scenario at once, Levenberg-Marquardt regularization
 in the carry, and the augmented-Lagrangian outer loop of ``solvers/al.py``.
-
-Ported: ``algorithm="ilqr"``.  The continuous-time SLQ backward pass and the
-associative-scan Riccati raise ``NotImplementedError``.
+The sweep is, with ``algorithm="ilqr"``, the discrete Riccati recursion
+(``ops/riccati.lqr_backward``: the CUDA kernel of ``riccati_backward.cu`` on
+the card) on the discretized transitions and, with ``algorithm="slq"``, the
+continuous-time Riccati ODE (``ops/riccati_ct.slq_backward``: the CUDA kernel
+of ``riccati_ct_backward.cu`` on the card) on the continuous-time LQ data of
+``approx.approximate_lq_ct``.  The associative-scan Riccati
+(``parallel_riccati``) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,12 +32,19 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from ..core.types import PerformanceIndex
-from ..oc.approx import approximate_lq, example_params
+from ..oc.approx import approximate_lq, approximate_lq_ct, example_params
 from ..oc.metrics import TrajectoryMetrics, al_dual_ascent, al_merit, evaluate_trajectory
 from ..oc.problem import OptimalControlProblem
 from ..oc.rollout import ddp_search_policy, open_loop_policy, rollout
 from ..oc.time_discretization import TimeGrid
-from ..ops.riccati import LqrCoeffs, LqrSolution, convexify, lqr_backward
+from ..ops.riccati import (
+    LqrCoeffs,
+    LqrSolution,
+    convexify,
+    convexify_stage_hessians,
+    lqr_backward,
+)
+from ..ops.riccati_ct import slq_backward
 from .al import AlState, augment_problem
 
 Tensor = torch.Tensor
@@ -42,7 +52,7 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class DdpSettings:
-    algorithm: str = "ilqr"  # "ilqr" (discrete Riccati) | "slq" (not ported)
+    algorithm: str = "ilqr"  # "ilqr" (discrete Riccati) | "slq" (Riccati ODE)
     max_iterations: int = 15
     min_rel_cost: float = 1e-3  # relative merit decrease convergence
     constraint_tolerance: float = 1e-3
@@ -164,13 +174,10 @@ def solve(
     leading [B] on every leaf; ``params`` (a dict) is shared by all
     scenarios.  Everything runs on ``device``; the problem, the params and
     the inputs must live there.  ``force_plain_riccati`` is a test hook that
-    routes the backward sweep through the kernel's plain PyTorch version."""
-    if settings.algorithm != "ilqr":
-        raise NotImplementedError(
-            f"algorithm={settings.algorithm!r}: the continuous-time SLQ "
-            "backward pass (ops/riccati_ct.py) belongs to a later slice of "
-            "the port; only 'ilqr' is available"
-        )
+    routes the backward sweep (either algorithm's) through its kernel's plain
+    PyTorch version."""
+    if settings.algorithm not in ("ilqr", "slq"):
+        raise ValueError(f"unknown algorithm {settings.algorithm!r}; 'ilqr' or 'slq'")
     if settings.parallel_riccati:
         raise NotImplementedError(
             "parallel_riccati=True: the associative-scan Riccati "
@@ -222,6 +229,15 @@ def solve(
     rows = torch.arange(batch, device=dev)
 
     def backward_pass(xs, us, p_al, reg) -> LqrSolution:
+        if settings.algorithm == "slq":
+            ct = approximate_lq_ct(aug, grid, xs, us, p_al)
+            if do_convexify:
+                q_m, p_m, r_m, qf = convexify_stage_hessians(
+                    ct.Q, ct.P, ct.R, ct.Qf, method=settings.hessian_correction)
+                ct = ct._replace(Q=q_m.contiguous(), P=p_m.contiguous(),
+                                 R=r_m.contiguous(), Qf=qf.contiguous())
+            return slq_backward(ct, reg, substeps=settings.riccati_substeps,
+                                force_plain=force_plain_riccati)
         lq = approximate_lq(
             aug, grid, xs, us, p_al,
             method=settings.integrator, substeps=settings._substeps,

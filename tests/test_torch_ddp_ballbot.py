@@ -163,7 +163,7 @@ def test_hessian_correction_leaves_a_psd_problem_where_it_was():
         np.testing.assert_allclose(forced.us.numpy(), auto.us.numpy(), atol=1e-3, rtol=1e-4)
 
 
-@pytest.mark.parametrize("kwargs", [{"algorithm": "slq"}, {"parallel_riccati": True}])
+@pytest.mark.parametrize("kwargs", [{"parallel_riccati": True}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="slice"):
         ddp.solve(

@@ -183,3 +183,30 @@ def test_solver_slice_entry_points_default_to_the_card():
 
     for fn in (ipm.solve, slp.solve, mpc.Mpc, api.Solver):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+@pytest.mark.parametrize("module", [
+    "ops/riccati_ct.py", "ops/riccati_ct_cuda.py", "oc/hybrid_rollout.py",
+    "solvers/hybrid_ddp.py", "solvers/switch_time.py", "ops/care.py"])
+def test_ddp_family_modules_are_present_and_imported(fresh_import, module):
+    """The DDP family's modules (SLQ's continuous-time sweep and its kernel's
+    wrapper, the hybrid path, the CARE) exist and are among those the fresh
+    interpreter imported without JAX or the JAX package."""
+    proc, _ = fresh_import
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names = proc.stdout.split("MODULES", 1)[1].split()
+    assert (PKG / module).exists()
+    assert "ocs2_tpu_torch." + module[:-3].replace("/", ".") in names
+
+
+def test_ddp_family_entry_points_default_to_the_card_and_the_kernel_source_exists():
+    import inspect
+
+    from ocs2_tpu_torch.oc import approx, time_discretization
+    from ocs2_tpu_torch.ops import _build, riccati_ct_cuda
+    from ocs2_tpu_torch.solvers import hybrid_ddp
+
+    for fn in (time_discretization.make_event_grid_traced, hybrid_ddp.solve_state_triggered):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert callable(approx.approximate_lq_ct)
+    assert (_build.CSRC_DIR / riccati_ct_cuda.SOURCE).exists()

@@ -315,8 +315,21 @@ def test_solver_facade_matches(algorithm):
 
 @pytest.mark.parametrize("algorithm", ["slq"])
 def test_solver_facade_later_algorithms_raise(algorithm):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Solver(di.make_problem(device="cpu"), algorithm=algorithm, device="cpu")
+    """Named when ``Solver("slq")`` raised in the port; it now solves: the
+    unconstrained double integrator to the SQP facade's inputs within 5e-2
+    (SLQ's sweep integrates the Riccati ODE where SQP's recursion runs on the
+    discretized transitions: at dt = 0.08 the two policies differ by 2.2e-2),
+    with a finite value function; ``tests/test_torch_slq.py`` holds it to the
+    JAX package's ``Solver("slq")``."""
+    grid, x0 = uniform_grid(0.0, 2.0, 25), np.array([1.0, 0.0], np.float32)
+    ref = Solver(di.make_problem(device="cpu"), algorithm="sqp", device="cpu").run(
+        grid, x0, di.make_params(device="cpu"))
+    solver = Solver(di.make_problem(device="cpu"), algorithm=algorithm, device="cpu")
+    sol = solver.run(grid, x0, di.make_params(device="cpu"))
+    assert solver.settings.algorithm == "slq" and bool(sol.converged[0])
+    close(sol.us[0], ref.us[0], 0.0, 5e-2)
+    v = solver.get_value_function(torch.tensor(float(grid.times[8])), sol.xs[0, 8])
+    assert bool(torch.isfinite(v.f).all())
 
 
 @pytest.mark.parametrize("algorithm", ["ipm", "slp"])
