@@ -59,8 +59,12 @@ main paths and checks that they went through the kernels:
   linear system, the discrete kernel at (2, 1, 1, 40)).
 
 Each phase prints one JSON line; the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero without a result when there
-is no CUDA device or when any phase fails.  Imports neither JAX nor the JAX
+``{"ok": true, "device": {...}}``.  The continuous-time kernel's
+``kernel_check`` lines also give its launch geometry (``blocks_per_sm`` and
+``waves`` from the library's occupancy probe), its time per call through the
+wrapper and over calls queued back to back, and at the SLQ lane's shape the
+time at B = 3,696 beside B = 4,096 (``wave_check``).  Exits non-zero without a
+result when there is no CUDA device or when any phase fails.  Imports neither JAX nor the JAX
 package.
 
 Peak rates used for the bounds: 3.35 TB/s of device memory and 67 TFLOP/s of
@@ -193,6 +197,24 @@ def riccati_bound(nx, nu, batch, n):
         # The chain is a floor of operations (their latency, not their rate).
         "bound_by": "bytes" if term == "bytes" else "operations", "bound_term": term,
     }
+
+
+def time_ms_queued(torch, fn, reps, warmup):
+    """Mean time of one call over `reps` calls queued back to back between
+    one pair of CUDA events: the kernel's own time where the host enqueues
+    faster than the card runs (time_ms also counts the host's work before
+    each launch, which the card waits for)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def time_ms(torch, fn, reps, warmup):
@@ -1779,6 +1801,10 @@ def slp_ballbot_b256(torch, riccati_cuda):
 # with more inputs than states and a jump.
 CT_SHAPES = [(10, 3, 4096, 32, ()), (2, 1, 1, 100, (30, 61)), (3, 5, 77, 6, (2,))]
 CT_SUBSTEPS = 4  # DdpSettings.riccati_substeps
+# The SLQ lane's batch, and the scenarios 132 SMs hold in one wave at 28 an
+# SM (4 a block, 7 blocks an SM: the kernel's first geometry), timed side by
+# side in one call.
+CT_WAVE_BATCH, CT_FIRST_WAVE = 4096, 3696
 # The hybrid phase's K1 shape: 40 base intervals and 3 event slots (N = 46),
 # and the switch-time phase's (N = 40 with the event's jump interval).
 HYB_SHAPE = (2, 1, 1, 46)
@@ -1896,23 +1922,48 @@ def check_ct_kernel(torch, riccati_ct, riccati_ct_cuda, shape, seed, timed):
         err, bad_fields = compare_fields(
             torch, out, riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS, force_plain=True))
         max_err, bad = max(max_err, err), bad + bad_fields
-    geometry = riccati_ct_cuda.launch_geometry(nx, nu, batch)
+    geometry = riccati_ct_cuda.card_geometry(nx, nu, batch, DEVICE)
     rec = {
         "phase": "kernel_check", "kernel": "riccati_ct_backward", "pivots": "strict",
         "nx": nx, "nu": nu, "B": batch, "N": n, "jump_intervals": list(jumps),
         "substeps": CT_SUBSTEPS, "reg_values": list(REG_VALUES),
         "blocks": geometry.blocks, "threads": geometry.threads,
-        "shared_bytes": geometry.shared_bytes, "max_abs_err": max_err, "rtol": RTOL,
-        "atol": ATOL, "ok": not bad,
+        "shared_bytes": geometry.shared_bytes, "blocks_per_sm": geometry.blocks_per_sm,
+        "waves": geometry.waves, "max_abs_err": max_err, "rtol": RTOL, "atol": ATOL,
+        "ok": not bad,
     }
     if timed:
         reg = regs[-1]
         rec.update(riccati_ct_bound(nx, nu, batch, n))
         rec["kernel_ms"] = time_ms(
             torch, lambda: riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS), reps=20, warmup=3)
+        rec["kernel_ms_queued"] = time_ms_queued(
+            torch, lambda: riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS), reps=20, warmup=3)
         rec["plain_ms"] = time_ms(
             torch, lambda: riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS, force_plain=True),
             reps=3, warmup=1)
+    if timed and batch == CT_WAVE_BATCH:
+        # The first CT_FIRST_WAVE scenarios alone, timed beside the whole batch
+        # in turns: the two times part when the whole batch needs a second wave.
+        part = coeffs._replace(**{
+            f: getattr(coeffs, f)[:CT_FIRST_WAVE].contiguous()
+            for f in coeffs._fields if f not in ("times", "is_jump")})
+        part_reg = reg[:CT_FIRST_WAVE].contiguous()
+        part_geometry = riccati_ct_cuda.card_geometry(nx, nu, CT_FIRST_WAVE, DEVICE)
+        part_ms, whole_ms = [], []
+        for _ in range(2):
+            part_ms.append(time_ms(
+                torch, lambda: riccati_ct.slq_backward(part, part_reg, CT_SUBSTEPS), reps=20,
+                warmup=3))
+            whole_ms.append(time_ms(
+                torch, lambda: riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS), reps=20,
+                warmup=3))
+        rec["wave_check"] = {
+            "B": [CT_FIRST_WAVE, batch], "kernel_ms": [min(part_ms), min(whole_ms)],
+            "kernel_ms_runs": [part_ms, whole_ms],
+            "waves": [part_geometry.waves, geometry.waves],
+            "ratio": min(whole_ms) / min(part_ms),
+        }
     emit(rec)
     if bad:
         raise SystemExit(f"riccati_ct_backward disagrees with its plain version at {shape}: {bad}")
@@ -2929,9 +2980,13 @@ def main() -> int:
              * 1e-3 * ct_checks[0]["kernel_ms"] / slq["seconds_per_solve"],
              **{k: ct_checks[0][k] for k in shape_keys if k in ct_checks[0]}},
         ],
-        "checks": [{k: c[k] for k in ("nx", "nu", "B", "N", "kernel_ms", "plain_ms", "bound_ms",
+        "checks": [{k: c[k] for k in ("nx", "nu", "B", "N", "kernel_ms", "kernel_ms_queued",
+                                      "plain_ms", "bound_ms",
                                       "bound_by", "bound_term", "bytes_ms", "flops_ms",
-                                      "chain_ms", "max_abs_err")} for c in ct_checks],
+                                      "chain_ms", "max_abs_err", "blocks", "threads",
+                                      "shared_bytes", "blocks_per_sm", "waves")}
+                   for c in ct_checks],
+        "wave_check": ct_checks[0]["wave_check"],
     }]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

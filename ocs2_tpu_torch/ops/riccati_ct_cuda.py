@@ -2,21 +2,30 @@
 
 The JAX package leaves ``slq_backward`` (``ocs2_tpu/ops/riccati_ct.py``) to
 XLA; on the card its recursion, 16 dependent right-hand-side evaluations an
-interval with a Cholesky each, is one hand-written kernel: a warp per
-scenario, the time loop and the RK4 steps inside, every operand and
-intermediate in shared memory, strict Cholesky pivots.  Its plain PyTorch
-version is ``riccati_ct._slq_backward_plain``.
+interval with a Cholesky factor each, is one hand-written kernel with the time
+loop and the RK4 steps inside and strict Cholesky pivots.  A group of threads
+serves one scenario (16 at (nx, nu) = (10, 3), two scenarios a warp; one
+thread where a scenario fits one thread's registers, as at (2, 1)): each
+thread keeps its tiles of the symmetric S, of the RK4 sum and of the jump
+branch in registers for the whole sweep, an evaluation takes two group
+barriers, each step's Cholesky factors are formed in the step before, and the
+next node's coefficients are copied while the current interval runs.  Its
+plain PyTorch version is ``riccati_ct._slq_backward_plain``.
 
 The state and input sizes are compile-time constants of the kernel: one small
 library per ``(nx, nu)`` pair is built with ``nvcc`` at first use (see
 ``_build.py``) and bound through ``ctypes``.  The scenarios per block are
-chosen here, by ``launch_geometry``.  There is no fallback: on a CUDA tensor
-the wrapper launches the kernel or raises.
+chosen here, by ``launch_geometry``, so that the batch runs in as few waves as
+the card holds (one at the SLQ lane's B = 4096): on the card from the
+library's occupancy probe (``riccati_ct_backward_blocks_per_sm``), without one
+from ``modelled_blocks_per_sm``, the same arithmetic on the H100's limits.
+There is no fallback: on a CUDA tensor the wrapper launches the kernel or
+raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Iterable, NamedTuple, Tuple
+from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,12 +35,18 @@ from .riccati_ct import CtLqCoeffs
 
 SOURCE = "riccati_ct_backward.cu"
 MAX_DIM = 32
-THREADS_PER_SCENARIO = 32  # a warp
 MAX_BLOCK_THREADS = 256  # the kernel's __launch_bounds__
 MAX_SHARED_BYTES = 232448  # 227 KB a block
-# Scenarios a block holds at most (a few warps keep the SM's schedulers busy
-# while one waits on shared memory).
-MAX_SCENARIOS_PER_BLOCK = 4
+# An H100 SXM's SM, for the occupancy model (the card's own count and the
+# library's probe replace it at launch).
+NUM_SMS = 132
+SM_MAX_BLOCKS = 32
+SM_MAX_THREADS = 2048
+SM_REGISTERS = 65536
+SM_SHARED_BYTES = 233472  # 228 KB
+SHARED_BYTES_RESERVED_PER_BLOCK = 1024
+# The kernel's __launch_bounds__(256, 2) caps a thread at this many.
+MAX_REGISTERS_PER_THREAD = 128
 
 # Number of kernel launches made by slq_backward_cuda (and by nothing else),
 # and the (B, N, nx, nu, substeps) of the latest one.
@@ -43,21 +58,65 @@ _NODE_NDIM = {"A": 4, "B": 4, "Q": 4, "q": 3, "R": 4, "r": 3, "P": 4,
               "times": 1, "is_jump": 1}
 
 
-def _pad4(n: int) -> int:
-    return (n + 3) // 4 * 4
+def _pad(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def _one_thread(nx: int, nu: int) -> bool:
+    """A scenario small enough for one thread's registers (the kernel's
+    kOneThread)."""
+    return 5 * nx * nx + 2 * (nx + 1) * nu <= 48
+
+
+def _tiles(nx: int, nu: int) -> int:
+    """Tiles of an nx x nx matrix's upper triangle: the whole matrix for a
+    one-thread scenario, else 2 x 2 entries, single entries for nx <= 4 (the
+    kernel's T)."""
+    edge = nx if _one_thread(nx, nu) else (1 if nx <= 4 else 2)
+    blocks = -(-nx // edge)
+    return blocks * (blocks + 1) // 2
+
+
+def threads_per_scenario(nx: int, nu: int) -> int:
+    """The kernel's group: one thread for a scenario that fits its registers,
+    else about two jobs (a tile, or a column of the solve) a thread, a power
+    of two from 4 to 32."""
+    if _one_thread(nx, nu):
+        return 1
+    jobs = _tiles(nx, nu) + nx + 1
+    p = 1
+    while p < (jobs + 1) // 2:
+        p *= 2
+    return min(32, max(4, p))
 
 
 def shared_bytes_per_scenario(nx: int, nu: int) -> int:
-    """The kernel's shared-memory layout of one scenario: three node-sized
-    coefficient blocks (nodes k and k+1, one theta), the jump data, the value
-    and stage buffers, the products, the factor and the solve."""
-    node = (2 * _pad4(nx * nx) + _pad4(nx * nu) + _pad4(nx) + _pad4(nu * nu) + _pad4(nu)
-            + _pad4(nu * nx))
-    floats = (3 * node + 2 * _pad4(nx * nx) + _pad4(nx)          # nodes, C, jump data
-              + 4 * (_pad4(nx * nx) + _pad4(nx))                  # S, Sy, KS, SJ (+ vectors)
-              + 2 * _pad4(nx * nx) + _pad4(nx)                    # T, U, A's
-              + 2 * _pad4(nu * (nx + 1)) + 2 * _pad4(nu * nu))    # G, Z, RR, L
-    return 4 * floats
+    """The kernel's shared-memory layout of one scenario: the stage input
+    [S | s], G and Z (rows of nx + 1 floats padded to even), four Cholesky
+    factors, dv1 and dv2 with two intervals' grid, A, B and [P | r] at one
+    theta, the jump data and three node buffers (nx x nx matrices in
+    rows padded to even); every array padded to 16 bytes, the whole to (group
+    mod 32) banks past a multiple of 32."""
+    xp, cp = _pad(nx, 2), _pad(nx + 1, 2)
+    coeffs = _pad(nx * xp, 4) + _pad(nx * nu, 4) + _pad(nu * cp, 4)  # A, B, [P | r]
+    node = coeffs + _pad(nu * nu, 4) + _pad(nx * xp, 4) + _pad(nx, 4)  # R, Q, q
+    jump = 2 * _pad(nx * xp, 4) + _pad(nx, 4)
+    factors = 4 * _pad(nu * nu + nu, 4)  # a step's three thetas, a node's own R
+    used = _pad(nx * cp, 4) + 2 * _pad(nu * cp, 4) + factors + 8 + coeffs + jump + 3 * node
+    group = threads_per_scenario(nx, nu)
+    shift = 4 if group < 4 else group % 32
+    return 4 * (used + (shift - used % 32) % 32)
+
+
+def modelled_blocks_per_sm(nx: int, nu: int, spb: int) -> int:
+    """Blocks of ``spb`` scenarios an H100 SM holds at once, from its limits
+    (blocks, threads, registers at the kernel's cap, shared memory with
+    1 KB reserved a block): the CPU-side model of the library's probe."""
+    warps = -(-spb * threads_per_scenario(nx, nu) // 32)
+    shared = spb * shared_bytes_per_scenario(nx, nu) + SHARED_BYTES_RESERVED_PER_BLOCK
+    return min(SM_MAX_BLOCKS, SM_MAX_THREADS // (32 * warps),
+               SM_REGISTERS // (32 * warps * MAX_REGISTERS_PER_THREAD),
+               SM_SHARED_BYTES // shared)
 
 
 class LaunchGeometry(NamedTuple):
@@ -65,31 +124,54 @@ class LaunchGeometry(NamedTuple):
     threads: int  # of a block
     shared_bytes: int  # of a block, dynamic
     scenarios_per_block: int
+    blocks_per_sm: int  # resident at once
+    waves: int  # ceil(blocks / (SMs * blocks_per_sm))
 
 
-def launch_geometry(nx: int, nu: int, batch: int) -> LaunchGeometry:
-    """Up to MAX_SCENARIOS_PER_BLOCK warps a block, as the shared memory
-    allows; fewer while the batch does not fill every SM with a block."""
+def launch_geometry(nx: int, nu: int, batch: int,
+                    blocks_per_sm: Optional[Callable[[int], int]] = None,
+                    num_sms: int = NUM_SMS) -> LaunchGeometry:
+    """Whole warps a block (as many scenarios as fill one), in the fewest
+    waves the SMs hold, and among those the smallest blocks.  ``blocks_per_sm``
+    maps scenarios per block to resident blocks per SM: the library's probe
+    on the card, ``modelled_blocks_per_sm`` by default."""
+    group = threads_per_scenario(nx, nu)
     per = shared_bytes_per_scenario(nx, nu)
-    cap = min(MAX_SCENARIOS_PER_BLOCK, MAX_BLOCK_THREADS // THREADS_PER_SCENARIO,
-              MAX_SHARED_BYTES // per)
-    if cap < 1:
+    occupancy = blocks_per_sm or (lambda spb: modelled_blocks_per_sm(nx, nu, spb))
+    fill = max(1, 32 // group)
+    best = None
+    for spb in range(fill, min(MAX_BLOCK_THREADS // group, MAX_SHARED_BYTES // per) + 1, fill):
+        resident = occupancy(spb)
+        if resident < 1:
+            continue
+        blocks = -(-batch // spb)
+        waves = -(-blocks // (num_sms * resident))
+        if best is None or waves < best.waves:
+            best = LaunchGeometry(blocks=blocks, threads=spb * group, shared_bytes=spb * per,
+                                  scenarios_per_block=spb, blocks_per_sm=resident, waves=waves)
+    if best is None:
         raise ValueError(f"no launch geometry for nx={nx}, nu={nu}")
-    spb = max(1, min(cap, batch // 132))
-    return LaunchGeometry(
-        blocks=-(-batch // spb), threads=spb * THREADS_PER_SCENARIO,
-        shared_bytes=spb * per, scenarios_per_block=spb,
-    )
+    return best
+
+
+# Further -D flags of every build (tools/riccati_ct_phase_clocks.py sets one
+# before the first launch).
+EXTRA_DEFINES: Tuple[str, ...] = ()
 
 
 def _defines(nx: int, nu: int) -> Tuple[str, ...]:
-    return (f"-DNX={nx}", f"-DNU={nu}")
+    return (f"-DNX={nx}", f"-DNU={nu}", *EXTRA_DEFINES)
 
 
 def build_jobs(pairs: Iterable[Tuple[int, int]]):
     """The (source, defines) jobs of several (nx, nu) pairs, for
     ``_build.build_libraries``, which starts the compilers together."""
     return [(SOURCE, _defines(nx, nu)) for nx, nu in pairs]
+
+
+def build(pairs: Iterable[Tuple[int, int]], verbose: bool = False) -> None:
+    """Build the libraries of several (nx, nu) pairs at once, in parallel."""
+    _build.build_libraries(build_jobs(pairs), verbose=verbose)
 
 
 _LIBRARIES: Dict[Tuple[int, int], ctypes.CDLL] = {}
@@ -104,6 +186,8 @@ def _library(nx: int, nu: int) -> ctypes.CDLL:
         fn = lib.riccati_ct_backward_launch
         fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.riccati_ct_backward_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.riccati_ct_backward_blocks_per_sm.restype = ctypes.c_int
         probes = (
             lib.riccati_ct_backward_nx, lib.riccati_ct_backward_nu,
             lib.riccati_ct_backward_threads_per_scenario,
@@ -112,7 +196,7 @@ def _library(nx: int, nu: int) -> ctypes.CDLL:
         for probe in probes:
             probe.argtypes, probe.restype = [], ctypes.c_int
         built = tuple(probe() for probe in probes)
-        want = (nx, nu, THREADS_PER_SCENARIO, shared_bytes_per_scenario(nx, nu))
+        want = (nx, nu, threads_per_scenario(nx, nu), shared_bytes_per_scenario(nx, nu))
         if built != want:
             raise RuntimeError(
                 f"riccati_ct library and wrapper disagree for nx={nx}, nu={nu}: "
@@ -120,6 +204,32 @@ def _library(nx: int, nu: int) -> ctypes.CDLL:
             )
         _LIBRARIES[(nx, nu)] = lib
     return lib
+
+
+_CARD_GEOMETRY: Dict[Tuple[int, int, int, int], LaunchGeometry] = {}
+
+
+def card_geometry(nx: int, nu: int, batch: int, device) -> LaunchGeometry:
+    """``launch_geometry`` on the card of ``device``: its SM count and the
+    library's occupancy probe (built at first use; cached)."""
+    index = device.index if isinstance(device, torch.device) else torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    key = (nx, nu, batch, index)
+    geometry = _CARD_GEOMETRY.get(key)
+    if geometry is None:
+        lib = _library(nx, nu)
+
+        def probe(spb: int) -> int:
+            with torch.cuda.device(index):
+                blocks = lib.riccati_ct_backward_blocks_per_sm(spb)
+            if blocks < 0:
+                raise RuntimeError(f"riccati_ct occupancy probe failed: CUDA error {-blocks} "
+                                   f"(nx={nx}, nu={nu}, {spb} scenarios a block)")
+            return blocks
+
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        geometry = _CARD_GEOMETRY[key] = launch_geometry(nx, nu, batch, probe, sms)
+    return geometry
 
 
 def check_inputs(coeffs: CtLqCoeffs, reg, substeps: int) -> Tuple[int, int, int, int]:
@@ -175,8 +285,8 @@ def slq_backward_cuda(coeffs: CtLqCoeffs, reg, substeps: int = 4) -> LqrSolution
     dev = coeffs.A.device
     if not coeffs.A.is_cuda:
         raise ValueError("slq_backward_cuda takes CUDA tensors")
-    geometry = launch_geometry(nx, nu, batch)
     lib = _library(nx, nu)
+    geometry = card_geometry(nx, nu, batch, dev)
     reg_b = torch.as_tensor(reg, dtype=torch.float32, device=dev).expand(batch).contiguous()
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
     results = (

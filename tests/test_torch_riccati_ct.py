@@ -5,10 +5,11 @@ The CUDA kernel (``csrc/riccati_ct_backward.cu``) runs only on a card; held
 here are its plain PyTorch version against the JAX sweep under ``vmap`` (per
 scenario ``reg``, jump intervals at dt = 0, substeps 4 and 8, NaN placement on
 an ``R`` that is not positive definite), the kernel's own arithmetic compiled
-for the host (the source with host stand-ins for its few intrinsics, each
-warp's 32 lanes as threads meeting on a barrier), the wrapper's checks and
-launch geometry (which need no card), and ``approximate_lq_ct`` against the
-JAX package's on the double integrator, the ballbot and EXP0 (with a jump).
+for the host (the source with host stand-ins for its few device intrinsics,
+each thread of a block a host thread, a group's barrier a barrier of its own
+threads), the wrapper's checks and launch geometry with its occupancy model
+(which need no card), and ``approximate_lq_ct`` against the JAX package's on
+the double integrator, the ballbot and EXP0 (with a jump).
 
 Tolerances: the plain sweep against JAX rtol 2e-4 / atol 1e-5 (float32
 reassociation over up to 16 dependent evaluations an interval, the same bound
@@ -17,6 +18,7 @@ version 1e-5 / 1e-6 (the same operations in another order); the LQ data
 rtol 1e-5 / atol 1e-6 (the same derivatives taken by two AD systems).
 """
 import ctypes
+import re
 import shutil
 import subprocess
 
@@ -188,14 +190,36 @@ def test_wrapper_accepts_checked_inputs_and_reports_dims():
 
 @pytest.mark.parametrize("shape", [(10, 3, 4096), (2, 1, 1), (3, 5, 77), (24, 12, 256)])
 def test_launch_geometry_fits_the_card(shape):
+    """The CPU-side occupancy model: whole warps a block within the block's
+    limits, and the SLQ lane's batch resident at once on 132 SMs."""
     nx, nu, batch = shape
     g = riccati_ct_cuda.launch_geometry(nx, nu, batch)
+    group = riccati_ct_cuda.threads_per_scenario(nx, nu)
     assert g.blocks * g.scenarios_per_block >= batch > (g.blocks - 1) * g.scenarios_per_block
-    assert g.threads == 32 * g.scenarios_per_block <= riccati_ct_cuda.MAX_BLOCK_THREADS
+    assert g.threads == group * g.scenarios_per_block <= riccati_ct_cuda.MAX_BLOCK_THREADS
+    assert g.threads % 32 == 0
+    per = riccati_ct_cuda.shared_bytes_per_scenario(nx, nu)
+    assert g.shared_bytes == g.scenarios_per_block * per
     assert g.shared_bytes <= riccati_ct_cuda.MAX_SHARED_BYTES
-    # The lane's batch fills every SM with several warps.
-    if batch == 4096:
-        assert g.scenarios_per_block == riccati_ct_cuda.MAX_SCENARIOS_PER_BLOCK
+    assert g.blocks_per_sm == riccati_ct_cuda.modelled_blocks_per_sm(nx, nu, g.scenarios_per_block)
+    assert g.waves == -(-g.blocks // (riccati_ct_cuda.NUM_SMS * g.blocks_per_sm)) == 1
+    if batch == 4096:  # two scenarios a warp, 16 warps an SM
+        assert (group, g.scenarios_per_block, g.blocks_per_sm) == (16, 2, 16)
+        assert riccati_ct_cuda.shared_bytes_per_scenario(nx, nu) <= 6 * 1024
+
+
+@pytest.mark.parametrize("resident, want_spb, want_waves", [
+    (lambda spb: 16, 2, 1),        # the model's answer at (10, 3)
+    (lambda spb: 8, 4, 1),         # half the blocks fit: twice the scenarios a block
+    (lambda spb: 0 if spb < 6 else 2, 16, 1),  # small blocks refused: the smallest that fit
+    (lambda spb: 1, 16, 2),        # one block an SM: the largest blocks, fewest waves
+], ids=["model", "half", "small_refused", "one_block"])
+def test_launch_geometry_follows_the_occupancy_probe(resident, want_spb, want_waves):
+    """On the card the library's probe answers for each block size: the rule
+    takes the fewest waves, then the smallest block."""
+    g = riccati_ct_cuda.launch_geometry(10, 3, 4096, blocks_per_sm=resident)
+    assert (g.scenarios_per_block, g.waves) == (want_spb, want_waves)
+    assert g.blocks_per_sm == resident(want_spb)
 
 
 def test_library_name_depends_on_pair_and_source():
@@ -214,15 +238,29 @@ _HOST_RUNTIME = r"""
 #include <cmath>
 #include <cstring>
 struct Dim3 { unsigned x = 0; };
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
 extern thread_local Dim3 threadIdx, blockIdx;
-extern std::barrier<>* g_warp_bar[8];
-inline void __syncwarp() { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
-inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+extern thread_local std::barrier<>* t_group_barrier;
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __grid_constant__
+"""
+
+# Host stand-ins for the kernel's device intrinsics: a group's barrier is a
+# barrier of its own threads (on the card the groups of a warp meet on one), a
+# copy lands at once.
+_HOST_INTRINSICS = r"""
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline float quiet_nan() { return __int_as_float(0x7fc00000); }
+inline float pivot_sqrt(float s) { return std::sqrt(s); }
+inline float pivot_reciprocal(float d) { return 1.0f / d; }
+inline void group_sync() { t_group_barrier->arrive_and_wait(); }
+inline void copy4(float* dst, const float* src) { *dst = *src; }
+inline void copy_wait_all() {}
 """
 
 _HOST_MAIN = r"""
@@ -231,10 +269,11 @@ _HOST_MAIN = r"""
 #include <thread>
 #include <vector>
 thread_local Dim3 threadIdx, blockIdx;
-std::barrier<>* g_warp_bar[8];
+thread_local std::barrier<>* t_group_barrier;
 static float smem_block[232448 / 4];
 #include "kernel_body.inc"
 extern "C" int host_shared_bytes() { return kScenarioBytes; }
+extern "C" int host_threads_per_scenario() { return G; }
 extern "C" void host_run(const float* A, const float* Bm, const float* Q, const float* q,
     const float* R, const float* r, const float* P, const float* AJ, const float* QJ,
     const float* qJ, const float* Qf, const float* qf, const float* times,
@@ -242,17 +281,19 @@ extern "C" void host_run(const float* A, const float* Bm, const float* Q, const 
     float* dv1, float* dv2, int batch, int n, int spb, int substeps) {
   for (int bk = 0; bk < (batch + spb - 1) / spb; ++bk) {
     std::vector<std::unique_ptr<std::barrier<>>> bars;
-    for (int w = 0; w < spb; ++w) {
-      bars.emplace_back(new std::barrier<>(32));
-      g_warp_bar[w] = bars.back().get();
-    }
+    for (int w = 0; w < spb; ++w) bars.emplace_back(new std::barrier<>(G));
     std::vector<std::thread> lanes;
-    for (int t = 0; t < spb * 32; ++t) lanes.emplace_back([=] {
-      threadIdx.x = t;
-      blockIdx.x = bk;
-      riccati_ct_backward_kernel(A, Bm, Q, q, R, r, P, AJ, QJ, qJ, Qf, qf, times, is_jump, reg,
-                                 gains, kff, vS, vs, dv1, dv2, batch, n, spb, substeps);
-    });
+    for (int t = 0; t < spb * G; ++t) {
+      std::barrier<>* bar = bars[t / G].get();
+      lanes.emplace_back([=] {
+        threadIdx.x = t;
+        blockIdx.x = bk;
+        t_group_barrier = bar;
+        riccati_ct_backward_kernel(Params{A, Bm, Q, q, R, r, P, AJ, QJ, qJ, Qf, qf, times,
+                                          is_jump, reg, gains, kff, vS, vs, dv1, dv2, batch, n,
+                                          spb, substeps});
+      });
+    }
     for (auto& lane : lanes) lane.join();
   }
 }
@@ -260,13 +301,16 @@ extern "C" void host_run(const float* A, const float* Bm, const float* Q, const 
 
 
 def _host_kernel(tmp_path, nx, nu):
-    """The kernel's source up to its host interface, with the block's shared
-    memory a static array, built by g++ as a library: each lane a thread,
-    ``__syncwarp`` a barrier of the warp's 32 threads."""
+    """The kernel's source up to its host interface, with host stand-ins for
+    its device intrinsics and the block's shared memory a static array, built
+    by g++ as a library: each thread of a block a host thread, a group's
+    barrier a barrier of its own threads."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the kernel's source for the host")
     src = (riccati_ct_cuda._build.CSRC_DIR / riccati_ct_cuda.SOURCE).read_text()
     body = src.split("// -- host interface")[0]
+    body = re.sub(r"// -- device intrinsics.*?// -- end of device intrinsics[^\n]*\n",
+                  lambda _: _HOST_INTRINSICS, body, count=1, flags=re.S)
     body = body.replace("#include <cuda_runtime.h>", '#include "cuda_runtime.h"')
     body = body.replace("extern __shared__ __align__(16) float smem[];",
                         "float* smem = smem_block;")
@@ -274,33 +318,52 @@ def _host_kernel(tmp_path, nx, nu):
     (tmp_path / "kernel_body.inc").write_text(body)
     (tmp_path / "host_main.cpp").write_text(_HOST_MAIN)
     out = tmp_path / f"libhost_{nx}_{nu}.so"
-    subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{tmp_path}", f"-DNX={nx}",
+    built = subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-fno-strict-aliasing", "-shared", "-fPIC",
+         f"-I{tmp_path}", f"-DNX={nx}",
          f"-DNU={nu}", "-o", str(out), str(tmp_path / "host_main.cpp"), "-lpthread"],
-        check=True, capture_output=True, timeout=120)
+        capture_output=True, text=True, timeout=120)
+    assert built.returncode == 0, built.stderr[-4000:]
     lib = ctypes.CDLL(str(out))
     lib.host_run.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4
     return lib
 
 
-@pytest.mark.parametrize("case", ["jumps_b9", "nu_gt_nx_nan"])
+@pytest.mark.parametrize("case", ["jumps_b9", "nu_gt_nx_nan", "ballbot_b9_ragged",
+                                  "odd_edges_b5", "one_thread_b9"])
 def test_kernel_source_on_the_host_matches_the_plain_version(tmp_path, case):
     """The kernel's phases, barriers and layout, run on the host: equal to
     the plain version at its tolerance, with NaN where the plain version has
     it (R = -I at node 4 of scenario 1 in the second case), and the layout's
-    bytes equal to the wrapper's."""
+    bytes and the group's threads equal to the wrapper's.  The cases cover the
+    kernel's three shapes of work: single-entry tiles ((4, 2), (3, 5)); 2 x 2
+    tiles at the ballbot's (10, 3) with two scenarios a block and an odd
+    batch, so the last block's second group leaves at once while its partner
+    runs on, and at (5, 2), whose tiles cross the matrix's edge; and one
+    thread a scenario at (2, 1), 32 scenarios a block."""
     if case == "jumps_b9":
         nx, nu, batch, n, jumps, substeps = 4, 2, 9, 10, (3, 7), 4
-    else:
+    elif case == "nu_gt_nx_nan":
         nx, nu, batch, n, jumps, substeps = 3, 5, 3, 6, (2,), 8
+    elif case == "ballbot_b9_ragged":
+        nx, nu, batch, n, jumps, substeps = 10, 3, 9, 6, (4,), 4
+    elif case == "odd_edges_b5":
+        nx, nu, batch, n, jumps, substeps = 5, 2, 5, 6, (1, 4), 4
+    else:
+        nx, nu, batch, n, jumps, substeps = 2, 1, 9, 12, (3, 8), 4
     lib = _host_kernel(tmp_path, nx, nu)
     assert lib.host_shared_bytes() == riccati_ct_cuda.shared_bytes_per_scenario(nx, nu)
+    assert lib.host_threads_per_scenario() == riccati_ct_cuda.threads_per_scenario(nx, nu)
     leaves = ct_numpy(batch, n, nx, nu, seed=7, jumps=jumps)
     if case == "nu_gt_nx_nan":
         leaves["R"][1, 4] = -np.eye(nu, dtype=np.float32)
     c = torch_coeffs(leaves)
     reg = torch.as_tensor(np.resize(np.float32([0.0, 1e-6, 0.1, 2.0]), batch))
     spb = riccati_ct_cuda.launch_geometry(nx, nu, batch).scenarios_per_block
+    if case == "ballbot_b9_ragged":
+        assert spb == 2 and batch % spb == 1
+    if case == "one_thread_b9":
+        assert riccati_ct_cuda.threads_per_scenario(nx, nu) == 1 and spb == 32
     out = riccati_ct.LqrSolution(
         torch.full((batch, n, nu, nx), 7.0), torch.full((batch, n, nu), 7.0),
         torch.full((batch, n + 1, nx, nx), 7.0), torch.full((batch, n + 1, nx), 7.0),
