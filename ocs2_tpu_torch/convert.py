@@ -17,6 +17,8 @@ import torch
 from .core.controllers import LinearController
 from .core.reference import ModeSchedule, TargetTrajectories
 from .core.types import PerformanceIndex
+from .models.collision import SphereModel
+from .models.kinematics import Chain, Joint
 from .models.legged_robot.centroidal import MassModel
 from .models.legged_robot.foothold_planner import FootholdPlan
 from .models.legged_robot.motions import Motion
@@ -175,4 +177,45 @@ def motion_from_numpy(rec: Any, device="cuda") -> Motion:
         target=target_trajectories_from_numpy(_field(rec, "target"), device),
         mode_schedule=mode_schedule_from_numpy(_field(rec, "mode_schedule")),
         duration=float(_field(rec, "duration")),
+    )
+
+
+def chain_from_numpy(rec: Any) -> Chain:
+    """A kinematic chain from its joints' numbers as arrays: ``offsets``
+    [J, 3], ``axes`` [J, 3] (a principal axis as its unit vector), ``kinds``
+    [J] ("revolute" | "prismatic" | "fixed"), ``origin_rots`` [J, 3, 3] with
+    ``has_origin_rot`` [J] (False: no origin rotation), ``names`` [J],
+    ``ee_offset`` [3], ``ee_rot`` [3, 3] with ``has_ee_rot``.  The chain's
+    numbers are host constants, as in ``kinematics.Chain``."""
+    rows = lambda v: np.asarray(v, np.float64).reshape(-1).tolist()  # noqa: E731
+    names = np.asarray(_field(rec, "names"))
+    joints = tuple(
+        Joint(
+            offset=tuple(rows(offset)),
+            axis=tuple(rows(axis)),
+            kind=str(kind),
+            origin_rot=tuple(rows(rot)) if bool(has_rot) else None,
+            name=str(name),
+        )
+        for offset, axis, kind, rot, has_rot, name in zip(
+            _field(rec, "offsets"), _field(rec, "axes"), _field(rec, "kinds"),
+            _field(rec, "origin_rots"), _field(rec, "has_origin_rot"), names)
+    )
+    has_ee_rot = bool(_field(rec, "has_ee_rot"))
+    return Chain(
+        joints=joints,
+        ee_offset=tuple(rows(_field(rec, "ee_offset"))),
+        ee_rot=tuple(rows(_field(rec, "ee_rot"))) if has_ee_rot else None,
+    )
+
+
+def sphere_model_from_numpy(rec: Any, device="cuda") -> SphereModel:
+    """A ``SphereModel`` (frame_idx, offsets, radii, pairs) on ``device``:
+    indices as int64, geometry as float32."""
+    return SphereModel(
+        frame_idx=torch.as_tensor(np.array(_field(rec, "frame_idx"), np.int64), device=device),
+        offsets=_f32(_field(rec, "offsets"), device),
+        radii=_f32(_field(rec, "radii"), device),
+        pairs=torch.as_tensor(np.array(_field(rec, "pairs"), np.int64).reshape(-1, 2),
+                              device=device),
     )

@@ -22,9 +22,14 @@ from .time_discretization import TimeGrid
 
 Tensor = torch.Tensor
 
-# Entries of the parameter dict whose leaves carry a leading scenario dim [B]
-# (the solver's augmented-Lagrangian state); every other entry is shared.
-PER_SCENARIO_KEYS = ("al",)
+# Entries of the parameter dict whose leaves carry a leading scenario dim [B]:
+# the solver's augmented-Lagrangian state, and "scenario", a dict of the
+# caller's per-scenario parameters (e.g. one end-effector target per
+# scenario of a batch, where the JAX package maps a whole solve over its
+# params).  The LQ approximation maps them with the scenarios; a batched
+# evaluation hands terms the [B, ...] leaves, to broadcast against their
+# inputs' leading dim.  Every other entry is shared.
+PER_SCENARIO_KEYS = ("al", "scenario")
 
 
 class LQData(NamedTuple):

@@ -210,3 +210,45 @@ def test_ddp_family_entry_points_default_to_the_card_and_the_kernel_source_exist
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert callable(approx.approximate_lq_ct)
     assert (_build.CSRC_DIR / riccati_ct_cuda.SOURCE).exists()
+
+
+@pytest.mark.parametrize("module", [
+    "models/cartpole.py", "models/kinematics.py", "models/urdf.py", "models/collision.py",
+    "models/mobile_manipulator.py", "utils/recorder.py", "utils/observers.py"])
+def test_model_zoo_modules_are_present_and_imported(fresh_import, module):
+    """The robot model zoo's modules and the operator surface exist and are
+    among those the fresh interpreter imported without JAX or the JAX
+    package."""
+    proc, _ = fresh_import
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names = proc.stdout.split("MODULES", 1)[1].split()
+    assert (PKG / module).exists()
+    assert "ocs2_tpu_torch." + module[:-3].replace("/", ".") in names
+
+
+def test_model_zoo_entry_points_default_to_the_card():
+    import inspect
+
+    from ocs2_tpu_torch import convert
+    from ocs2_tpu_torch.models import cartpole, collision, mobile_manipulator
+    from ocs2_tpu_torch.utils import observers, recorder
+
+    fns = [
+        cartpole.make_problem, cartpole.make_params, cartpole.initial_state_down,
+        mobile_manipulator.make_params, mobile_manipulator.home_state,
+        mobile_manipulator.variant_home_state, mobile_manipulator.spheres,
+        collision.SphereModel.create, recorder.pose_command_to_target, observers.term_slices,
+        convert.sphere_model_from_numpy,
+    ]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def test_model_zoo_assets_are_the_ports_own():
+    """The bundled URDFs are read from the port's package, not the JAX
+    package's."""
+    from ocs2_tpu_torch.models import urdf
+
+    for name in ("franka_panda.urdf", "ur5.urdf"):
+        path = pathlib.Path(urdf.asset_path(name)).resolve()
+        assert path.parent == PKG / "models" / "assets"

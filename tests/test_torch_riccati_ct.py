@@ -330,7 +330,7 @@ def _host_kernel(tmp_path, nx, nu):
 
 
 @pytest.mark.parametrize("case", ["jumps_b9", "nu_gt_nx_nan", "ballbot_b9_ragged",
-                                  "odd_edges_b5", "one_thread_b9"])
+                                  "odd_edges_b5", "one_thread_b9", "cartpole_b9"])
 def test_kernel_source_on_the_host_matches_the_plain_version(tmp_path, case):
     """The kernel's phases, barriers and layout, run on the host: equal to
     the plain version at its tolerance, with NaN where the plain version has
@@ -340,7 +340,9 @@ def test_kernel_source_on_the_host_matches_the_plain_version(tmp_path, case):
     tiles at the ballbot's (10, 3) with two scenarios a block and an odd
     batch, so the last block's second group leaves at once while its partner
     runs on, and at (5, 2), whose tiles cross the matrix's edge; and one
-    thread a scenario at (2, 1), 32 scenarios a block."""
+    thread a scenario at (2, 1), 32 scenarios a block.  The last case is the
+    cartpole swing-up's (4, 1): 8 threads a scenario with single-entry
+    tiles, no jump."""
     if case == "jumps_b9":
         nx, nu, batch, n, jumps, substeps = 4, 2, 9, 10, (3, 7), 4
     elif case == "nu_gt_nx_nan":
@@ -349,8 +351,10 @@ def test_kernel_source_on_the_host_matches_the_plain_version(tmp_path, case):
         nx, nu, batch, n, jumps, substeps = 10, 3, 9, 6, (4,), 4
     elif case == "odd_edges_b5":
         nx, nu, batch, n, jumps, substeps = 5, 2, 5, 6, (1, 4), 4
-    else:
+    elif case == "one_thread_b9":
         nx, nu, batch, n, jumps, substeps = 2, 1, 9, 12, (3, 8), 4
+    else:
+        nx, nu, batch, n, jumps, substeps = 4, 1, 9, 10, (), 4
     lib = _host_kernel(tmp_path, nx, nu)
     assert lib.host_shared_bytes() == riccati_ct_cuda.shared_bytes_per_scenario(nx, nu)
     assert lib.host_threads_per_scenario() == riccati_ct_cuda.threads_per_scenario(nx, nu)
@@ -364,6 +368,8 @@ def test_kernel_source_on_the_host_matches_the_plain_version(tmp_path, case):
         assert spb == 2 and batch % spb == 1
     if case == "one_thread_b9":
         assert riccati_ct_cuda.threads_per_scenario(nx, nu) == 1 and spb == 32
+    if case == "cartpole_b9":
+        assert riccati_ct_cuda.threads_per_scenario(nx, nu) == 8
     out = riccati_ct.LqrSolution(
         torch.full((batch, n, nu, nx), 7.0), torch.full((batch, n, nu), 7.0),
         torch.full((batch, n + 1, nx, nx), 7.0), torch.full((batch, n + 1, nx), 7.0),
