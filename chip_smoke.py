@@ -26,7 +26,7 @@ main paths and checks that they went through the kernels:
   approximation, its SDF and 1,000 height / plane queries, card against
   CPU); ``perceptive_mpc`` (the segmented-planes problem on a decomposed
   stepped map, N = 46 over 1.4 s, a host foothold re-plan and one solve per
-  tick, 12 ticks); ``perceptive_closed_loop`` (``Mpc`` with the
+  tick, 8 ticks); ``perceptive_closed_loop`` (``Mpc`` with the
   ``PerceptiveReferenceManager`` in ``dummy_loop``, N = 32, 2 s at 60 Hz
   control and 15 Hz MPC); the sweep of both is the kernel at (24, 12) with
   strict pivots;
@@ -38,7 +38,7 @@ main paths and checks that they went through the kernels:
 * the interior-point solver on the flagship problem with the hard friction
   cone (the barrier's inequality; the foot constraint projected, N = 100,
   15 iterations at most): ``legged_ipm_tick_b1`` (a cold solve from the
-  weight-compensating guess, then 2 chains of 6 receding-horizon ticks; the
+  weight-compensating guess, then a chain of 3 receding-horizon ticks; the
   kernel at (1, 100, 24, 12) with strict pivots, one launch per IPM
   iteration) and ``legged_ipm_b256`` (the b256 lane's scenarios; the kernel
   at (256, 100, 24, 12), clamped), each held against the sweep's torch-op
@@ -67,7 +67,16 @@ main paths and checks that they went through the kernels:
   targets in one batch, the kernel at (256, 40, 9, 8)) and
   ``urdf_variants_b1`` (the franka on four base types and the UR5 on two,
   the kernel at (7, 7) ... (13, 13) with strict pivots), each held against
-  the JAX package's records in ``tests/torch_data/``.
+  the JAX package's records in ``tests/torch_data/``;
+* loopshaping (the frequency-shaped legged MPC: one low-pass filter state
+  per input, nx = 48): ``loopshaping_trot_b1`` (SQP on the loopshaped trot
+  at N = 40, rk2 with 2 substeps, 12 iterations, the kernel at
+  (1, 40, 48, 12) with strict pivots; beside it the unshaped solve of the
+  same task at (1, 40, 24, 12), whose shaping functional the shaped solve
+  must undercut) and ``loopshaping_closed_loop`` (``Mpc`` in ``dummy_loop``,
+  N = 28, 12.5 Hz MPC and 50 Hz control for 0.8 s, the kernel at
+  (1, 28, 48, 12)), both held against the JAX package's record in
+  ``tests/torch_data/``.
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  The continuous-time kernel's
@@ -81,7 +90,8 @@ package.
 Peak rates used for the bounds: 3.35 TB/s of device memory and 67 TFLOP/s of
 float32 outside the tensor cores (NVIDIA H100 SXM data sheet); the latencies
 of the dependent chain are stated at ``riccati_bound`` and
-``riccati_ct_bound``.
+``riccati_ct_bound``.  The build line gives ptxas' registers and spill of
+every library it built.
 """
 from __future__ import annotations
 
@@ -118,9 +128,19 @@ DEVICE = "cuda"  # every phase runs on the card; main() refuses to start without
 # Whole solves: the kernel's route against its plain version's.
 SOLVE_ATOL, SOLVE_RTOL = 1e-3, 1e-4
 REG_VALUES = (0.0, 1e-6, 0.1, 2.0)
+# Timed solves after the warm-up in main_path, legged_tick_b256,
+# quadrotor_sqp_b4096, comkino_trot and slq_ballbot_b4096: one (three until
+# the loopshaping phases took the script past its time target, PERF.md §4).
+TIMED_SOLVES = 1
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -162,7 +182,8 @@ def riccati_bound(nx, nu, batch, n):
 
     * bytes: each input read once, each output written once, over the memory
       rate;
-    * flops: its operations over the float32 rate;
+    * flops: its operations over the card's float32 rate, each symmetric
+      product (A' S A, B' S B, the S update) counted at its upper triangle;
     * chain: node k needs S of node k + 1, so the N nodes follow one another
       whatever the batch, and inside a node so do: the two dot products of
       length nx that feed Quu_hat (S B, then B' (S B)), nu pivot steps (a
@@ -173,7 +194,13 @@ def riccati_bound(nx, nu, batch, n):
       ceil(log2 m) adds; a dependent multiply-add takes 4 cycles, a
       special-function operation 18, a hand-over between threads (shared
       memory or shuffle round trip) 23, at the 1.98 GHz boost clock.  These
-      are the least the card's pipelines allow, not what a kernel reaches."""
+      are the least the card's pipelines allow, not what a kernel reaches.
+
+    Beside the bound, ``design_floor_ms``: the same floors with the flops over
+    the rate of the SMs this kernel's launch occupies (one block a scenario,
+    so min(blocks, 132) / 132 of the card's peak; one SM's at B = 1).  It is
+    a floor of this design, not of the card: another design could spread a
+    scenario over several SMs."""
     floats_in = batch * n * (2 * nx * nx + 2 * nx * nu + nu * nu + 2 * nx + nu)
     floats_in += batch * (nx * nx + nx + 1)
     floats_out = batch * n * (nx * nu + nu) + batch * (n + 1) * (nx * nx + nx) + 2 * batch
@@ -181,14 +208,19 @@ def riccati_bound(nx, nu, batch, n):
     per_node = (
         4 * nx * nx + 2 * nx * nu              # S b, A' sv, B' sv
         + 2 * nx * nx * nu + 2 * nx ** 3       # S B, S A
-        + 2 * nx * nu * nu + 2 * nx * nx * nu  # B' sB, B' sA
-        + 2 * nx ** 3                          # A' sA
+        + nx * nu * (nu + 1) + 2 * nx * nx * nu  # B' sB (symmetric), B' sA
+        + nx * nx * (nx + 1)                   # A' sA (symmetric)
         + nu ** 3 // 3 + 2 * nu * nu * (nx + 1)  # Cholesky, solves
         + 2 * nu * nu * (nx + 1)               # Quu_hat K, Quu_hat kff
-        + 6 * nx * nx * nu + 6 * nx * nu       # S and s updates
+        # S update: K' (Quu_hat K) and K' Qux + Qux' K, both symmetric; s update
+        + 3 * nx * (nx + 1) * nu + 6 * nx * nu
         + 2 * nx * nx + 4 * nu                 # symmetrize, dv1, dv2
     )
     flops = batch * n * per_node
+    from ocs2_tpu_torch.ops import riccati_cuda
+
+    blocks = riccati_cuda.launch_geometry(nx, nu, batch).blocks
+    sm_share = min(blocks, riccati_cuda.NUM_SMS) / riccati_cuda.NUM_SMS
     dot = lambda m: FMA_CYCLES * (1 + (m - 1).bit_length())  # noqa: E731
     chain_cycles = n * (
         2 * dot(nx) + EXCHANGE_CYCLES
@@ -206,6 +238,8 @@ def riccati_bound(nx, nu, batch, n):
         "bytes_ms": 1e3 * terms["bytes"], "flops_ms": 1e3 * terms["flops"],
         "chain_ms": 1e3 * terms["chain"],
         "bound_ms": 1e3 * terms[term],
+        "design_floor_ms": 1e3 * max(terms["bytes"], terms["flops"] / sm_share,
+                                     terms["chain"]),
         # The chain is a floor of operations (their latency, not their rate).
         "bound_by": "bytes" if term == "bytes" else "operations", "bound_term": term,
     }
@@ -301,10 +335,12 @@ def check_kernel(torch, riccati, riccati_cuda, shape, seed, timed):
             torch, lambda: riccati.lqr_backward(coeffs, reg), reps=20, warmup=3)
         rec["kernel_ms_queued"] = time_ms_queued(
             torch, lambda: riccati.lqr_backward(coeffs, reg), reps=20, warmup=3)
-        # The plain version is a Python loop of small launches; 3 runs do.
-        rec["plain_ms"] = time_ms(torch, plain, reps=3, warmup=1)
+        # The plain version and the single sweep are Python loops of small
+        # launches: 3 timed runs each, after the comparison's run (their
+        # warm-up).
+        rec["plain_ms"] = time_ms(torch, plain, reps=3, warmup=0)
         if strict:
-            rec["single_sweep_ms"] = time_ms(torch, single, reps=3, warmup=1)
+            rec["single_sweep_ms"] = time_ms(torch, single, reps=3, warmup=0)
     emit(rec)
     if bad:
         raise SystemExit(f"riccati_backward disagrees with its plain version at {shape}: {bad}")
@@ -347,7 +383,7 @@ def main_path(torch, riccati_cuda):
     from ocs2_tpu_torch.oc.time_discretization import uniform_grid
     from ocs2_tpu_torch.solvers import ddp
 
-    batch, n, max_it, solves = 4096, 32, 8, 3
+    batch, n, max_it, solves = 4096, 32, 8, TIMED_SOLVES
     problem = ballbot.make_problem()
     params = ballbot.make_params()
     grid = uniform_grid(0.0, 1.0, n)
@@ -437,7 +473,7 @@ def legged_solve(cfg, x0, us_init, **kw):
     from ocs2_tpu_torch.solvers import sqp
 
     return sqp.solve(cfg["problem"], cfg["grid"], x0, cfg["params"], us_init=us_init,
-                     settings=cfg["settings"], device=DEVICE, **kw)
+                     xs_init=cfg.get("xs_init"), settings=cfg["settings"], device=DEVICE, **kw)
 
 
 def check_legged_solution(torch, cfg, sol, what):
@@ -463,13 +499,16 @@ def check_legged_solution(torch, cfg, sol, what):
     return worst
 
 
-def legged_tick_b1(torch, riccati_cuda, cfg, chains=2, ticks_per_chain=8):
+# Chains of 8 ticks of the legged tick at B = 1: one, not five (two until the
+# loopshaping phases took the script past its time target, PERF.md §4).
+B1_CHAINS = 1
+
+
+def legged_tick_b1(torch, riccati_cuda, cfg, chains=B1_CHAINS, ticks_per_chain=8):
     """The control-rate tick: chains of dependent receding-horizon ticks (the
     next tick starts at the solved xs[1], warm-started with the solved
     inputs), one synchronise per chain.  Its backward sweep is the CUDA kernel
-    with strict pivots, one launch per SQP iteration.  Two chains, not five:
-    the perceptive and the ComKino phases took the script past its time
-    target (PERF.md §4)."""
+    with strict pivots, one launch per SQP iteration."""
     riccati_cuda.launch_count = 0
     riccati_cuda.last_launch_dims = None
     t0 = time.perf_counter()
@@ -575,7 +614,7 @@ def compare_solves(torch, a, b, what):
     return err
 
 
-def legged_tick_b256(torch, riccati_cuda, cfg, cold_b1, solves=3):
+def legged_tick_b256(torch, riccati_cuda, cfg, cold_b1, solves=TIMED_SOLVES):
     """The scenario batch: 256 perturbed initial states, shared warm start and
     params; its backward sweep is the CUDA kernel at (nx, nu) = (24, 12) with
     clamped pivots."""
@@ -844,7 +883,8 @@ def quadrotor_x0s(batch=QUAD_BATCH, seed=QUAD_SEED):
         np.float32)
 
 
-def quadrotor_sqp_b4096(torch, riccati_cuda, at_quad, iterations_out=None, solves=3):
+def quadrotor_sqp_b4096(torch, riccati_cuda, at_quad, iterations_out=None,
+                        solves=TIMED_SOLVES):
     """``sqp.solve`` on 4096 quadrotor scenarios; the sweep is the kernel at
     (12, 4, 4096, 40), one launch per loop iteration."""
     from ocs2_tpu_torch.models import quadrotor
@@ -943,9 +983,10 @@ def quadrotor_sqp_b4096(torch, riccati_cuda, at_quad, iterations_out=None, solve
 # -- the perceptive lane -----------------------------------------------------------
 
 # bench.py:287 (bench_perceptive_mpc): the stepped map, 1.4 s over 46 intervals,
-# 8 SQP iterations at most; 12 ticks after a warm-up (20 until the ComKino phases
-# took the script past its time target, PERF.md §4).
-PERC_STEP_X, PERC_STEP_H, PERC_HORIZON, PERC_N, PERC_TICKS = 0.45, 0.12, 1.4, 46, 12
+# 8 SQP iterations at most; 8 ticks after a warm-up (20 until the ComKino phases
+# and 12 until the loopshaping phases took the script past its time target,
+# PERF.md §4).
+PERC_STEP_X, PERC_STEP_H, PERC_HORIZON, PERC_N, PERC_TICKS = 0.45, 0.12, 1.4, 46, 8
 # tests/test_segmented_planes.py:332 (TestClosedLoopPerceptive): the 0.08 m step,
 # N = 32 over 1 s, 6 iterations at most, 2 s at 60 Hz control and 15 Hz MPC.
 LOOP_STEP_H, LOOP_HORIZON, LOOP_N = 0.08, 1.0, 32
@@ -1427,7 +1468,7 @@ def comkino_trot_setup(torch):
     }
 
 
-def comkino_trot(torch, riccati_cuda, cfg, at_trot, solves=3):
+def comkino_trot(torch, riccati_cuda, cfg, at_trot, solves=TIMED_SOLVES):
     """One cold ComKino SQP solve (a warm-up, then ``solves`` timed), its sweep
     the kernel at (1, 40, 24, 12) with strict pivots; the cold solve once more
     through the single-scenario sweep."""
@@ -1482,7 +1523,10 @@ def comkino_trot(torch, riccati_cuda, cfg, at_trot, solves=3):
 # weight-compensating guess: from zero inputs the reference's IPM fails
 # (ROADMAP.md §3).
 IPM_MAX_ITERATIONS = 15
-IPM_TICKS_PER_CHAIN = 6
+# One chain of 3 ticks (two chains of 6 until the loopshaping phases took the
+# script past its time target, PERF.md §4); tools/legged_ipm_reference.py runs
+# as many.
+IPM_CHAINS, IPM_TICKS_PER_CHAIN = 1, 3
 # IPM stops when the total violation, which includes the slack gap |h - s|,
 # falls below constraint_tol = 1e-4.  On flat ground the stance slacks sit
 # near 92, where float32 rounds h and s to 5.5e-6 each: over the ~300 stance
@@ -1549,7 +1593,7 @@ def check_ipm_solution(torch, cfg, sol, what):
     return worst, stance_slacks(torch, cfg, sol).amin(dim=1)
 
 
-def legged_ipm_tick_b1(torch, riccati_cuda, cfg, chains=2, ticks_per_chain=IPM_TICKS_PER_CHAIN,
+def legged_ipm_tick_b1(torch, riccati_cuda, cfg, chains=IPM_CHAINS, ticks_per_chain=IPM_TICKS_PER_CHAIN,
                        ipm_out=None):
     """The slice's main path: ``ipm.solve`` at B = 1, N = 100, as chains of
     dependent receding-horizon ticks (each starts at the solved xs[1],
@@ -1953,9 +1997,10 @@ def check_ct_kernel(torch, riccati_ct, riccati_ct_cuda, shape, seed, timed):
             torch, lambda: riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS), reps=20, warmup=3)
         rec["kernel_ms_queued"] = time_ms_queued(
             torch, lambda: riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS), reps=20, warmup=3)
+        # 3 timed runs after the comparison's run (see check_kernel).
         rec["plain_ms"] = time_ms(
             torch, lambda: riccati_ct.slq_backward(coeffs, reg, CT_SUBSTEPS, force_plain=True),
-            reps=3, warmup=1)
+            reps=3, warmup=0)
     if timed and batch == CT_WAVE_BATCH:
         # The first CT_FIRST_WAVE scenarios alone, timed beside the whole batch
         # in turns: the two times part when the whole batch needs a second wave.
@@ -2022,7 +2067,7 @@ def ballbot_batch(torch, batch=4096):
             uniform_grid(0.0, 1.0, 32), x0s)
 
 
-def slq_ballbot_b4096(torch, riccati_cuda, riccati_ct_cuda, main_run, solves=3):
+def slq_ballbot_b4096(torch, riccati_cuda, riccati_ct_cuda, main_run, solves=TIMED_SOLVES):
     """``ddp.solve`` with ``algorithm="slq"`` (8 iterations at most) on
     main_path's batch: a warm-up, ``solves`` timed solves, then the first 256
     scenarios again through ``force_plain_riccati``, held against the kernel
@@ -2879,6 +2924,444 @@ def urdf_variants_b1(torch, riccati_cuda, at_shapes):
     return out
 
 
+# -- loopshaping: the frequency-shaped legged MPC at nx = 48 ----------------------
+
+# The loopshaped trot (tests/test_legged_loopshaping.py:29-40): the flagship
+# problem behind one low-pass filter state per input (nx = 24 + 24), the
+# 12-row foot constraint projected, so K1 runs at (48, 12); trot 0.7 s, N = 40
+# over 1 s, SQP with rk2 and 2 substeps, 12 iterations at most
+# (loopshaping_mpc.make_solver_settings).  The unshaped comparison solve
+# (:142-149) runs the same task on interface.make_problem() at (24, 12).
+# One timed solve, not two: a depth cut for the card's time (PERF.md §4).
+LS_N, LS_HORIZON, LS_TIMED_SOLVES = 40, 1.0, 1
+# K1's shape on the trot; the unshaped solve's is CK_TROT_SHAPE, (24, 12, 1, 40).
+LS_SHAPE = (48, 12, 1, LS_N)
+# The dummy MRT loop (:158-199): Mpc at N = 28 over 0.7 s, 6 iterations at
+# most, 12.5 Hz MPC and 50 Hz control (rk4, 2 substeps: |lambda| h = 1 at
+# the 100 rad/s pole), from the augmented default state; 0.8 s (10 ticks) of
+# the test's 1.2 s (15): a depth cut for the card's time (PERF.md §4; the
+# record holds the 15).
+LS_LOOP_N, LS_LOOP_HORIZON, LS_LOOP_MAX_ITERATIONS = 28, 0.7, 6
+LS_LOOP_DURATION, LS_MRT_HZ, LS_MPC_HZ = 0.8, 50.0, 12.5
+LS_LOOP_SHAPE = (48, 12, 1, LS_LOOP_N)
+# The batch shape K1 is also checked at (clamped pivots; no lane runs it).
+LS_BATCH_SHAPE = (48, 12, 256, LS_N)
+# The JAX tests' own bounds: dynamics violation, base height (solve and loop),
+# swing-leg forces, roll / pitch / yaw of the loop; and the shaping
+# functional of the shaped inputs against the unshaped ones.
+LS_DYN_SSE, LS_HEIGHT_TOL, LS_SWING_FORCE = 1e-3, 0.12, 2.0
+LS_LOOP_HEIGHT_TOL, LS_LOOP_ATTITUDE_TOL, LS_SHAPING_RATIO = 0.15, 0.35, 0.9
+LS_RECORD = os.path.join(_DATA, "loopshaping_reference.npz")
+
+
+def shaping_functional(us, p_diag, g_diag, dt, u0):
+    """sum_k |y_k|^2 with y = g (u - lowpass(u)), the low-pass integrated by
+    the solver's RK2 with 2 substeps (tests/test_legged_loopshaping.py's
+    ``_y_sse``, in numpy float32 with the sums in float64).  us [N, 24]; the
+    filter's poles p and gains g; u0 the low-pass state's start."""
+    xi = np.array(u0, np.float32)
+    acc = 0.0
+    for k in range(us.shape[0]):
+        u = np.asarray(us[k], np.float32)
+        y = g_diag * (u - xi)
+        acc += float(np.sum(y * y))
+        for _ in range(2):
+            h = dt / 2
+            k1 = p_diag * (u - xi)
+            k2 = p_diag * (u - (xi + h * k1))
+            xi = xi + h * 0.5 * (k1 + k2)
+    return acc
+
+
+def loopshaping_setup(torch):
+    """The loopshaped trot's problem, grid, params, augmented start, warm
+    start and settings (the JAX test's ``trot_setup``), held against the
+    record's copies; the keys of legged_setup, so profile_legged takes it."""
+    from ocs2_tpu_torch.models.legged_robot import interface, model
+    from ocs2_tpu_torch.models.legged_robot import loopshaping_mpc as lm
+
+    problem, defn = lm.make_loopshaping_problem(device=DEVICE)
+    grid = trot_grid(LS_HORIZON, LS_N)
+    x0 = model.default_state(DEVICE)
+    u0 = model.weight_compensating_input(np.ones(4, np.float32), DEVICE)
+    xs_init, us_init = lm.loopshaped_warm_start(defn, grid, x0)
+    cfg = {"lm": lm, "defn": defn, "problem": problem, "grid": grid,
+           "params": interface.make_params(grid, device=DEVICE), "u0": u0,
+           "x0": lm.augment_state(defn, x0, u0), "xs_init": xs_init, "us_init": us_init,
+           "settings": lm.make_solver_settings(), "record": load_record(LS_RECORD)}
+    rec = cfg["record"]
+    assert np.array_equal(np.asarray(grid.times), rec["grid_times"]), "the record's grid differs"
+    for key in ("x0", "xs_init", "us_init"):
+        want = rec["xa0" if key == "x0" else key]
+        assert np.abs(cfg[key].cpu().numpy() - want).max() <= 1e-5, f"the record's {key} differs"
+    return cfg
+
+
+def shaped_functional(cfg, us):
+    """shaping_functional of plant inputs us [N, 24] (a tensor) under cfg's
+    filter, from the low-pass state u0, at the grid's first step."""
+    defn, grid = cfg["defn"], cfg["grid"]
+    return shaping_functional(us.cpu().numpy(), -np.diag(defn.A.cpu().numpy()),
+                              np.diag(defn.D.cpu().numpy()),
+                              float(grid.times[1] - grid.times[0]), cfg["u0"].cpu().numpy())
+
+
+def check_loopshaped_trot(torch, cfg, sol):
+    """The JAX test's assertions (tests/test_legged_loopshaping.py:72-110):
+    finite, dynamics violation SSE under LS_DYN_SSE, the base within
+    LS_HEIGHT_TOL of its stand height, swing legs' forces under
+    LS_SWING_FORCE N, the filtered output finite.  Returns the three
+    measures."""
+    from ocs2_tpu_torch.models.legged_robot import model
+    from ocs2_tpu_torch.models.legged_robot.gait import contact_flags_static
+
+    lm, defn = cfg["lm"], cfg["defn"]
+    assert bool(torch.isfinite(sol.xs).all()) and bool(torch.isfinite(sol.us).all())
+    dyn = float(sol.performance.dynamics_violation_sse[0])
+    assert dyn < LS_DYN_SSE, dyn
+    xs_p, us_p = lm.plant_trajectory(defn, sol.xs[0], sol.us[0])
+    height = float((xs_p[:, 8] - model.STAND_HEIGHT).abs().max())
+    assert height < LS_HEIGHT_TOL, height
+    modes = np.asarray(cfg["grid"].modes)[:LS_N]
+    swing = torch.as_tensor(np.stack([contact_flags_static(int(m)) < 0.5 for m in modes]),
+                            device=DEVICE)
+    forces = us_p[:, :12].reshape(LS_N, 4, 3).abs().amax(-1)
+    swing_force = float(torch.where(swing, forces, torch.zeros_like(forces)).max())
+    assert swing_force < LS_SWING_FORCE, swing_force
+    assert bool(torch.isfinite(lm.filtered_output(defn, sol.xs[0], sol.us[0])).all())
+    return {"dynamics_violation_sse": dyn, "base_height_max_abs_dev": height,
+            "max_swing_force": swing_force}
+
+
+def loopshaping_trot_b1(torch, riccati_cuda, at_ls, at_plain, cfg, out=None):
+    """The loopshaped trot (tests/test_legged_loopshaping.py:29-110): SQP on
+    the augmented problem (nx = 48) from the augmented stance, warm-started
+    by ``loopshaped_warm_start``, rk2 with 2 substeps, 12 iterations; the
+    sweep is K1 at (1, 40, 48, 12) with strict pivots, one launch an
+    iteration.  A one-iteration warm-up, then LS_TIMED_SOLVES timed cold
+    solves (the median reported).  The first iteration is held through the
+    kernel against the single-scenario sweep (compare_solves); three
+    iterations with the eigh in float64 against the JAX package's solve with
+    its eigh in float64, to the tolerance (hold_eigh64_trot); the 12-iteration
+    solve against the JAX package's record by hold_float32_decided (its xs
+    and us are decided by float32 rounding: iterations and merit held) and
+    by the JAX test's bounds.  Then the unshaped solve of the
+    same task (:142-149; K1 at (1, 40, 24, 12)), held against the record by
+    compare_with_record, and the shaping functional of the shaped inputs must
+    be under LS_SHAPING_RATIO of the unshaped one's."""
+    from ocs2_tpu_torch.models.legged_robot import interface
+    from ocs2_tpu_torch.solvers import sqp
+
+    lm, rec = cfg["lm"], cfg["record"]
+
+    def solve(settings, **kw):
+        return sqp.solve(cfg["problem"], cfg["grid"], cfg["x0"], cfg["params"],
+                         xs_init=cfg["xs_init"], us_init=cfg["us_init"], settings=settings,
+                         device=DEVICE, **kw)
+
+    # The warm-up: one iteration, through the kernel and through the
+    # single-scenario sweep of torch ops.  After one iteration the two routes
+    # differ only by the sweep's rounding (every other operation is the same
+    # on the same data), and they must agree; after a few more a float32
+    # eigh's rounding decides the solve (PERF.md §6; hold_float32_decided).
+    one = lm.make_solver_settings(max_iterations=1)
+    t0 = time.perf_counter()
+    first = solve(one)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    first_single = solve(one, force_single_riccati=True)
+    torch.cuda.synchronize()
+    first_vs_single = compare_solves(torch, first, first_single,
+                                     "loopshaped trot, first iteration: kernel vs single sweep")
+    # Three iterations with the Hessian correction's eigh in float64, against
+    # the JAX package's solve with its eigh in float64: there the rounding of
+    # the zero block no longer decides the step, and the solve is held to the
+    # tolerance (hold_eigh64_trot).
+    with eigh_in_float64(torch):
+        three = solve(lm.make_solver_settings(max_iterations=3))
+    three_vs_eigh64 = hold_eigh64_trot(torch, three, rec)
+    riccati_cuda.launch_count, riccati_cuda.last_launch_dims = 0, None
+    seconds, sols = [], []
+    for _ in range(LS_TIMED_SOLVES):
+        t0 = time.perf_counter()
+        sols.append(solve(cfg["settings"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    sol = sols[0]
+    assert all(bool(torch.equal(s.iterations, sol.iterations)) for s in sols), "solves differ"
+    assert launches == sum(int(s.iterations[0]) for s in sols) > 0, launches
+    assert dims == (1, LS_N, 48, 12), dims
+    bounds = check_loopshaped_trot(torch, cfg, sol)
+    xs_np, us_np = sol.xs[0].cpu().numpy(), sol.us[0].cpu().numpy()
+    vs_record = hold_float32_decided(int(sol.iterations[0]), float(sol.performance.merit[0]),
+                                     xs_np, us_np, rec, "trot_", "loopshaped trot vs the JAX record")
+    sec = statistics.median(seconds)
+    shaped = shaped_functional(cfg, sol.us[0])
+
+    plain_problem = interface.make_problem(device=DEVICE)
+    plain_settings = sqp.SqpSettings(max_iterations=12, integrator="rk2")
+    riccati_cuda.launch_count, riccati_cuda.last_launch_dims = 0, None
+    t0 = time.perf_counter()
+    plain = sqp.solve(plain_problem, cfg["grid"], cfg["x0"][:24], cfg["params"],
+                      us_init=cfg["u0"][None].expand(LS_N, 24), settings=plain_settings,
+                      device=DEVICE)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_launches, plain_dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    assert plain_launches == int(plain.iterations[0]) > 0, plain_launches
+    assert plain_dims == (1, LS_N, 24, 12), plain_dims
+    plain_vs_record = compare_with_record(torch, plain, rec, "unshaped_",
+                                          "unshaped trot vs the JAX record", rows=None)
+    unshaped = shaped_functional(cfg, plain.us[0])
+    assert shaped < LS_SHAPING_RATIO * unshaped, (shaped, unshaped)
+
+    launches_per_solve = launches / LS_TIMED_SOLVES
+    rec_out = {
+        "phase": "loopshaping_trot_b1", "B": 1, "N": LS_N, "nx": 48, "nu": 24,
+        "projected_nu": 12, "integrator": "rk2", "substeps": cfg["settings"].substeps,
+        "max_iterations": cfg["settings"].max_iterations, "solves_timed": LS_TIMED_SOLVES,
+        "seconds_per_solve": sec, "seconds_per_solve_all": seconds,
+        "seconds_per_iteration": sec / int(sol.iterations[0]), "warm_up_seconds": warm_s,
+        "iterations": int(sol.iterations[0]), "record_iterations": int(rec["trot_iterations"]),
+        "converged": bool(sol.converged[0]), "merit": float(sol.performance.merit[0]),
+        "record_merit": float(rec["trot_merit"]), **bounds,
+        "riccati_launches": launches, "kernel_dims": list(dims),
+        "launches_per_solve": launches_per_solve,
+        "share_of_solve": launches_per_solve * 1e-3 * at_ls["kernel_ms"] / sec,
+        "first_iteration_kernel_vs_single_sweep": first_vs_single, "vs_jax_record": vs_record,
+        "three_iterations_float64_eigh_vs_jax": three_vs_eigh64,
+        "shaping_functional": shaped, "unshaped_shaping_functional": unshaped,
+        "shaping_ratio": shaped / unshaped,
+        "record_shaping_functional": float(rec["trot_shaping_functional"]),
+        "record_unshaped_shaping_functional": float(rec["unshaped_shaping_functional"]),
+        "unshaped": {
+            "seconds": plain_s, "iterations": int(plain.iterations[0]),
+            "record_iterations": int(rec["unshaped_iterations"]),
+            "riccati_launches": plain_launches, "kernel_dims": list(plain_dims),
+            "share_of_solve": plain_launches * 1e-3 * at_plain["kernel_ms"] / plain_s,
+            "vs_jax_record": plain_vs_record,
+        },
+    }
+    emit(rec_out)
+    if out is not None:
+        out["trot"] = {"iterations": int(sol.iterations[0]), "xs": sol.xs[0].tolist(),
+                       "us": sol.us[0].tolist(), "shaping_functional": shaped}
+        out["unshaped"] = {"iterations": int(plain.iterations[0]), "xs": plain.xs[0].tolist(),
+                           "us": plain.us[0].tolist(), "shaping_functional": unshaped}
+    return rec_out
+
+
+# The record's routes besides its own (tools/loopshaping_reference.py), and
+# those of them whose Hessian correction's eigendecomposition ran in float64.
+LS_ROUTES = ("vmapped_one", "ulp_up", "ulp_down", "eigh64", "eigh64_vmapped_one", "eigh64_ulp_up")
+LS_LOOP_ROUTES = ("", "vmapped_", "ulp_up_", "eigh64_", "eigh64_vmapped_", "eigh64_ulp_up_")
+
+
+class eigh_in_float64:
+    """Within the block, ``torch.linalg.eigh`` (the eigendecomposition of
+    SQP's Hessian correction, ``ops/riccati.convexify_stage_hessians``) runs
+    in float64 and is rounded back to the input's type: the same function,
+    another rounding, as ``tools/loopshaping_reference.Eigh64`` gives the JAX
+    package."""
+
+    def __init__(self, torch):
+        self.linalg = torch.linalg
+
+    def __enter__(self):
+        self.saved = saved = self.linalg.eigh
+
+        def eigh64(z, *args, **kwargs):
+            w, v = saved(z.double(), *args, **kwargs)
+            return w.to(z.dtype), v.to(z.dtype)
+
+        self.linalg.eigh = eigh64
+        return self
+
+    def __exit__(self, *exc):
+        self.linalg.eigh = self.saved
+
+
+def hold_eigh64_trot(torch, sol, rec):
+    """The loopshaped trot at 3 iterations with the eigh in float64
+    (eigh_in_float64) against the JAX package's, whose float64-eigh routes
+    (the solve, vmapped, from a start one ulp up) agree within SOLVE_ATOL:
+    iterations equal, xs and us within SOLVE_ATOL + SOLVE_RTOL |value|."""
+    spread = [float(rec[f"trot3_eigh64_family_spread_{f}"]) for f in ("xs", "us")]
+    assert max(spread) <= SOLVE_ATOL, ("the record's float64-eigh routes part", spread)
+    assert int(sol.iterations[0]) == int(rec["trot3_eigh64_iterations"]), (
+        "trot, 3 iterations, float64 eigh", int(sol.iterations[0]))
+    out = {}
+    for f in ("xs", "us"):
+        mine, ref = getattr(sol, f)[0].cpu().numpy(), rec[f"trot3_eigh64_{f}"]
+        d = np.abs(mine - ref)
+        assert (d <= SOLVE_ATOL + SOLVE_RTOL * np.abs(ref)).all(), (
+            "trot, 3 iterations, float64 eigh, vs the JAX package's", f, float(d.max()))
+        out[f"max_abs_{f}"] = float(d.max())
+    return out
+
+
+def merit_ceiling(merits):
+    """The highest merit of the JAX package's routes plus their span."""
+    return max(merits) + (max(merits) - min(merits))
+
+
+def hold_float32_decided(iterations, merit, xs, us, rec, prefix, what):
+    """A loopshaped solve against the JAX record, where float32 rounding
+    decides the solution: the stage Hessians have an exactly zero block (no
+    cost on the filter state at the last node), whose eigenvalues come out of
+    a float32 eigh as rounding noise and are clamped or kept by their sign,
+    so the first SQP step moves by 1.4 in xs with the eigh's rounding and the
+    JAX package's own routes (its solve vmapped, from a start one ulp apart,
+    with a float64 eigh) land up to 1.8 apart after 12 iterations
+    (PERF.md §6).  Held: the iterations within the routes' range, and the
+    merit no higher than the highest of the routes' by more than the routes'
+    own span (a lower merit is a better solve).  The distance in xs and us
+    from the record is returned beside the routes' largest pairwise distance
+    (PERF.md §6 states how far past it the card's solve lands); it is not
+    held: the routes are samples of float32 rounding and bound no other
+    route."""
+    names = ("",) + tuple(f"{r}_" for r in LS_ROUTES)
+    its = [int(rec[f"{prefix}{n}iterations"]) for n in names]
+    merits = [float(rec[f"{prefix}{n}merit"]) for n in names]
+    assert min(its) <= iterations <= max(its), (what, "iterations", iterations, its)
+    assert merit <= merit_ceiling(merits), (what, "merit", merit, merits)
+    dx, du = float(np.abs(xs - rec[f"{prefix}xs"]).max()), float(np.abs(us - rec[f"{prefix}us"]).max())
+    spread = {f: float(rec[f"{prefix}spread_{f}"]) for f in ("xs", "us")}
+    return {"iterations": iterations, "jax_iterations": its, "merit": merit,
+            "jax_merits": merits, "max_abs_xs": dx, "max_abs_us": du,
+            "jax_pairwise_spread": spread}
+
+
+def hold_loop_eigh64_window(ticks, states, rec):
+    """The loop against the JAX package's loop with a float64 eigh, over the
+    leading control steps where that loop's vmapped and one-ulp twins agree
+    within SOLVE_ATOL (there the JAX package's loop is decided by its
+    arithmetic): the states within SOLVE_ATOL + SOLVE_RTOL |value|, and the
+    iterations of every tick that ends inside the window within the twins'
+    range."""
+    n_steps = states.shape[0]
+    ratio = int(round(LS_MRT_HZ / LS_MPC_HZ))
+    spread = rec["loop_eigh64_family_spread_states"][:n_steps]
+    window = int(np.argmax(spread > SOLVE_ATOL)) if (spread > SOLVE_ATOL).any() else n_steps
+    ref = rec["loop_eigh64_states"][:n_steps]
+    d = np.abs(states - ref)
+    assert (d[:window] <= SOLVE_ATOL + SOLVE_RTOL * np.abs(ref[:window])).all(), (
+        "loop vs the JAX float64-eigh loop", window, float(d[:window].max()))
+    family = ("eigh64_", "eigh64_vmapped_", "eigh64_ulp_up_")
+    held_ticks = min(len(ticks), max(0, (window - 1) // ratio))
+    for i in range(held_ticks):
+        its = [int(rec[f"loop_{r}iterations"][i]) for r in family]
+        assert min(its) <= ticks[i]["iterations"] <= max(its), ("loop tick", i, its)
+    return {"eigh64_window_steps": window, "eigh64_window_ticks": held_ticks,
+            "eigh64_window_max_abs_state_difference": float(d[:window].max()) if window else 0.0}
+
+
+def hold_loop_first_tick(ticks, rec):
+    """The loop's first tick ({"iterations", "merit"}) against the JAX
+    package's loop: it solves the same problem from the same start as the
+    record's, and is held as hold_float32_decided holds a solve (iterations
+    within the routes' range, merit under merit_ceiling).  Later ticks start
+    from states that float32 rounding has already moved
+    (hold_loop_eigh64_window holds the leading control steps where the JAX
+    package's loop is decided by its arithmetic)."""
+    its0 = [int(rec[f"loop_{r}iterations"][0]) for r in LS_LOOP_ROUTES]
+    merits0 = [float(rec[f"loop_{r}merit"][0]) for r in LS_LOOP_ROUTES]
+    first = ticks[0]
+    assert min(its0) <= first["iterations"] <= max(its0), ("loop tick 0", first, its0)
+    assert first["merit"] <= merit_ceiling(merits0), ("loop tick 0 merit", first, merits0)
+    return {"first_tick": {"iterations": first["iterations"], "jax_iterations": its0,
+                           "merit": first["merit"], "jax_merits": merits0}}
+
+
+def loopshaping_closed_loop(torch, riccati_cuda, at_loop, cfg, out=None):
+    """The loopshaped dummy MRT loop (tests/test_legged_loopshaping.py:
+    158-199): ``Mpc`` on the loopshaped problem with the gait's reference
+    manager, N = 28 over 0.7 s, 6 iterations at most, 12.5 Hz MPC, 50 Hz
+    control for LS_LOOP_DURATION from the augmented stance (10 ticks, 40
+    control steps of rk4 with 2 substeps); each tick's sweep is K1 at
+    (1, 28, 48, 12) with strict pivots, one launch an iteration.  Held
+    against the JAX package's loop (the record) by hold_loop_first_tick (the
+    later ticks are decided by float32 rounding), against the JAX package's
+    loop with a float64 eigh over the leading control steps where that loop
+    is decided by its arithmetic (hold_loop_eigh64_window), and by the JAX
+    test's bounds (height, attitude)."""
+    from ocs2_tpu_torch.models.legged_robot import interface, model
+    from ocs2_tpu_torch.models.legged_robot.gait import GaitSchedule, trot_gait
+    from ocs2_tpu_torch.mpc.mpc import Mpc, MpcSettings
+    from ocs2_tpu_torch.mpc.mrt import MpcMrtInterface, dummy_loop
+
+    lm, rec = cfg["lm"], cfg["record"]
+    grid0 = trot_grid(LS_LOOP_HORIZON, LS_LOOP_N)
+    mpc = Mpc(cfg["problem"], interface.make_params(grid0, device=DEVICE),
+              MpcSettings(time_horizon=LS_LOOP_HORIZON, num_intervals=LS_LOOP_N, solver="sqp"),
+              solver_settings=lm.make_solver_settings(max_iterations=LS_LOOP_MAX_ITERATIONS),
+              reference_manager=interface.SwitchedModelReferenceManager(
+                  GaitSchedule(trot_gait(0.7)), device=DEVICE),
+              device=DEVICE)
+    ticks, step_s, last = [], [], {"count": 0, "t": None}
+
+    def observe(t, x, u):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if mpc.solve_timer.count != last["count"]:
+            last["count"] = mpc.solve_timer.count
+            ticks.append({"solve_s": mpc.solve_timer.last, "tick_s": mpc.tick_timer.last,
+                          "iterations": int(mpc.last_solution.iterations[0]),
+                          "merit": float(mpc.last_solution.performance.merit[0])})
+        elif last["t"] is not None:
+            step_s.append(now - last["t"])
+        last["t"] = now
+
+    torch.cuda.synchronize()
+    riccati_cuda.launch_count, riccati_cuda.last_launch_dims = 0, None
+    t0 = time.perf_counter()
+    _, states, inputs = dummy_loop(MpcMrtInterface(mpc), cfg["x0"], duration=LS_LOOP_DURATION,
+                                   mrt_frequency=LS_MRT_HZ, mpc_frequency=LS_MPC_HZ,
+                                   observers=[observe])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    n_ticks = int(round(LS_LOOP_DURATION * LS_MPC_HZ))
+    n_steps = int(round(LS_LOOP_DURATION * LS_MRT_HZ))
+    assert len(ticks) == n_ticks and states.shape == (n_steps + 1, 48), (len(ticks), states.shape)
+    assert bool(torch.isfinite(states).all()) and bool(torch.isfinite(inputs).all())
+    height = float((states[:, 8] - model.STAND_HEIGHT).abs().max())
+    attitude = float(states[:, 9:12].abs().max())
+    assert height < LS_LOOP_HEIGHT_TOL and attitude < LS_LOOP_ATTITUDE_TOL, (height, attitude)
+    its = [k["iterations"] for k in ticks]
+    assert launches == sum(its) > 0, (launches, its)
+    assert dims == (1, LS_LOOP_N, 48, 12), dims
+
+    vs_record = hold_loop_first_tick(ticks, rec)
+    vs_eigh64 = hold_loop_eigh64_window(ticks, states.cpu().numpy(), rec)
+    solve_ms = [1e3 * k["solve_s"] for k in ticks]
+    host_ms = [1e3 * (k["tick_s"] - k["solve_s"]) for k in ticks]
+    rec_out = {
+        "phase": "loopshaping_closed_loop", "B": 1, "N": LS_LOOP_N, "nx": 48, "nu": 24,
+        "max_iterations": LS_LOOP_MAX_ITERATIONS, "duration_s": LS_LOOP_DURATION,
+        "mrt_frequency": LS_MRT_HZ, "mpc_frequency": LS_MPC_HZ, "ticks": len(ticks),
+        "control_steps": n_steps, "loop_seconds": loop_s,
+        "mpc_tick_ms_median": statistics.median(solve_ms), "mpc_tick_ms_worst": max(solve_ms),
+        "mpc_tick_ms_first": solve_ms[0],
+        "mpc_tick_host_ms_median": statistics.median(host_ms),
+        "mrt_step_ms_median": 1e3 * statistics.median(step_s),
+        "mrt_step_ms_worst": 1e3 * max(step_s),
+        "iterations_per_tick": its, "vs_jax_record": vs_record,
+        "vs_jax_eigh64_loop": vs_eigh64,
+        "base_height_max_abs_dev": height, "attitude_max_abs": attitude,
+        "riccati_launches": launches, "kernel_dims": list(dims),
+        "launches_per_tick": launches / len(ticks),
+        "share_of_tick": launches / len(ticks) * at_loop["kernel_ms"]
+        / statistics.median(solve_ms),
+    }
+    emit(rec_out)
+    if out is not None:
+        out["loop"] = {"iterations_per_tick": its, "merit_per_tick": [k["merit"] for k in ticks],
+                       "states": states.tolist()}
+    return rec_out
+
+
 def profile_slq(torch):
     """Where one SLQ iteration of the b4096 lane spends its time: host-clock
     medians of approximate_lq_ct, the CT sweep (kernel), the line search's
@@ -2986,8 +3469,10 @@ def profile_legged(torch, cfg, batch, path=None):
     """Stage times of one SQP iteration of the legged tick at the cold start
     (host-clock medians, each stage synchronised), the two QR routes of the
     projection side by side, and the card's busy share over one whole solve.
-    ``cfg`` is the flagship tick's (``legged_setup``) or the perceptive
-    lane's (``perceptive_setup``)."""
+    ``cfg`` is the flagship tick's (``legged_setup``), the perceptive lane's
+    (``perceptive_setup``) or the loopshaped trot's (``loopshaping_setup``,
+    nx = 48, whose costs are not PSD by structure: its Hessian correction,
+    ``eigh`` on [N, 72, 72], is a stage of its own)."""
     from ocs2_tpu_torch.oc.approx import approximate_lq, example_params
     from ocs2_tpu_torch.oc.metrics import al_dual_ascent, al_merit, evaluate_trajectory
     from ocs2_tpu_torch.ops import projection, riccati
@@ -2996,7 +3481,7 @@ def profile_legged(torch, cfg, batch, path=None):
 
     timed = lambda fn: timed_stage(torch, fn)  # noqa: E731
     problem, grid, params, st = cfg["problem"], cfg["grid"], cfg["params"], cfg["settings"]
-    n, nx, nu = grid.num_intervals, 24, 24
+    n, nx, nu = grid.num_intervals, problem.nx, problem.nu
     path = path or f"legged_sqp_b{batch}"
     i = torch.arange(batch, dtype=torch.float32, device=DEVICE)[:, None]
     x0s = cfg["x0"][None] + 1e-3 * torch.sin(i * torch.arange(nx, device=DEVICE)[None, :])
@@ -3009,13 +3494,17 @@ def profile_legged(torch, cfg, batch, path=None):
 
     stages = {}
     lq, stages["approximate_lq_ms"] = timed(
-        lambda: approximate_lq(aug, grid, xs, us, p_al, method=st.integrator))
+        lambda: approximate_lq(aug, grid, xs, us, p_al, method=st.integrator,
+                               substeps=st.substeps))
     coeffs = riccati.LqrCoeffs(
         A=lq.dynamics.dfdx, B=lq.dynamics.dfdu, b=lq.dynamics.f - xs[:, 1:],
         Qxx=lq.cost.dfdxx[:, :-1], qx=lq.cost.dfdx[:, :-1],
         Quu=lq.cost.dfduu[:, :-1] + st.hessian_reg * torch.eye(nu, device=DEVICE),
         qu=lq.cost.dfdu[:, :-1], Qux=lq.cost.dfdux[:, :-1],
         Qf=lq.cost.dfdxx[:, -1], qf=lq.cost.dfdx[:, -1])
+    if not aug.cost_structure_psd:
+        coeffs, stages[f"convexify_{st.hessian_correction}_ms"] = timed(
+            lambda: riccati.convexify(coeffs, st.hessian_reg, method=st.hessian_correction))
     d_t = lq.eq.dfdu.transpose(-1, -2)
     _, stages["qr_torch_linalg_ms"] = timed(lambda: torch.linalg.qr(d_t, mode="complete"))
     _, stages["qr_householder_ms"] = timed(lambda: projection.householder_qr(d_t))
@@ -3254,10 +3743,32 @@ def profile_main_path(torch):
           "stages": stages, "profiler": busy})
 
 
+def ptxas_report(jobs, logs):
+    """Registers, stack frame and spill of each library of ``jobs``, from
+    ptxas' report ({(source, defines): log} of _build.build_libraries); a
+    library found already built (not compiled in this run) is marked so."""
+    import re
+
+    out = {}
+    for source, defines in jobs:
+        name = source.rsplit(".", 1)[0] + " " + "_".join(
+            d[2:].replace("=", "").lower() for d in defines)
+        log = logs.get((source, tuple(defines)))
+        if log is None:
+            out[name] = "already built"
+            continue
+        regs = re.findall(r"Used (\d+) registers", log)
+        frame = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                           r"(\d+) bytes spill loads", log)
+        out[name] = {"registers": max(map(int, regs)) if regs else None,
+                     "stack_frame_bytes": max((int(f[0]) for f in frame), default=None),
+                     "spill_store_bytes": max((int(f[1]) for f in frame), default=None),
+                     "spill_load_bytes": max((int(f[2]) for f in frame), default=None)}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--verbose-build", action="store_true",
-                    help="print ptxas' registers / spills per kernel")
     ap.add_argument("--profile", action="store_true",
                     help="also time the stages of one iteration of every path, of one MPC "
                          "tick and of one control step")
@@ -3281,6 +3792,10 @@ def main() -> int:
     ap.add_argument("--hybrid-out", metavar="PATH",
                     help="write the hybrid solve's events, modes, cost, states and inputs as "
                          "JSON (for tools/hybrid_reference.py --compare)")
+    ap.add_argument("--loopshaping-out", metavar="PATH",
+                    help="write the loopshaped trot's and the unshaped solve's states, inputs "
+                         "and shaping functionals and the loopshaped closed loop's iterations "
+                         "and states as JSON (for tools/loopshaping_reference.py --compare)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3297,21 +3812,24 @@ def main() -> int:
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # Every library of both kernels, one nvcc each, all started together.
+    # Every library of both kernels, one nvcc each, all started together;
+    # ptxas' registers and spill of each build.
     t0 = time.perf_counter()
-    pairs = sorted({(nx, nu) for nx, nu, _, _ in KERNEL_SHAPES + [HYB_SHAPE] + ZOO_SHAPES})
+    pairs = sorted({(nx, nu) for nx, nu, _, _ in KERNEL_SHAPES + [HYB_SHAPE, LS_SHAPE]
+                    + ZOO_SHAPES})
     ct_pairs = sorted({(nx, nu) for nx, nu, _, _, _ in CT_SHAPES + [ZOO_CT_SHAPE]})
-    _build.build_libraries(
-        riccati_cuda.build_jobs(pairs) + riccati_ct_cuda.build_jobs(ct_pairs),
-        verbose=args.verbose_build)
+    jobs = riccati_cuda.build_jobs(pairs) + riccati_ct_cuda.build_jobs(ct_pairs)
+    logs = {}
+    _build.build_libraries(jobs, logs=logs)
     emit({"phase": "build", "libraries": [f"riccati_backward nx{a}_nu{b}" for a, b in pairs]
           + [f"riccati_ct_backward nx{a}_nu{b}" for a, b in ct_pairs],
-          "seconds": time.perf_counter() - t0})
+          "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(jobs, logs)})
 
     emit({"phase": "kernels", "kernels": ["riccati_backward", "riccati_ct_backward"],
           "shapes": [list(s) for s in KERNEL_SHAPES + [STRICT_SHAPE, PERC_SHAPE, LOOP_SHAPE,
                                                        CK_TROT_SHAPE, SLP_SHAPE, HYB_SHAPE,
-                                                       SWITCH_SHAPE] + ZOO_SHAPES],
+                                                       SWITCH_SHAPE] + ZOO_SHAPES
+                     + [LS_SHAPE, LS_LOOP_SHAPE, LS_BATCH_SHAPE]],
           "ct_shapes": [list(s[:4]) for s in CT_SHAPES + [ZOO_CT_SHAPE]]})
     checks = [
         check_kernel(torch, riccati, riccati_cuda, shape, seed=11 + i, timed=i < 3)
@@ -3343,6 +3861,13 @@ def main() -> int:
     check_strict_nan(torch, riccati, (13, 13, 1, 40), seed=50, node=17)
     ct_zoo = check_ct_kernel(torch, riccati_ct, riccati_ct_cuda, ZOO_CT_SHAPE, seed=51, timed=True)
     check_ct_nan(torch, riccati_ct, ZOO_CT_SHAPE, seed=52, scenario=1234, node=37)
+    # Loopshaping's (48, 12), the widest pair: the trot's and the closed
+    # loop's strict shapes, a clamped batch, and NaN placement with a
+    # 256-thread group on a named barrier.
+    ls_checks = {shape: check_kernel(torch, riccati, riccati_cuda, shape, seed=61 + i, timed=True)
+                 for i, shape in enumerate((LS_SHAPE, LS_LOOP_SHAPE, LS_BATCH_SHAPE))}
+    check_strict_nan(torch, riccati, LS_SHAPE, seed=64, node=17)
+    at_ls, at_ls_loop = ls_checks[LS_SHAPE], ls_checks[LS_LOOP_SHAPE]
     if args.skip_main_path:
         return 0
     run = main_path(torch, riccati_cuda)
@@ -3385,6 +3910,19 @@ def main() -> int:
         torch, riccati_cuda, {(nx, nu): zoo[(nx, nu, b, n)] for nx, nu, b, n in ZOO_SHAPES[3:]})
     zoo_seconds["urdf_variants_b1"] = time.perf_counter() - t0
     emit({"phase": "zoo_seconds", **zoo_seconds, "total": sum(zoo_seconds.values())})
+    # Loopshaping: the frequency-shaped legged MPC at nx = 48.
+    ls_seconds, ls_out = {}, ({} if args.loopshaping_out else None)
+    t0 = time.perf_counter()
+    ls_cfg = loopshaping_setup(torch)
+    ls_trot = loopshaping_trot_b1(torch, riccati_cuda, at_ls, at_trot, ls_cfg, ls_out)
+    ls_seconds["loopshaping_trot_b1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ls_loop = loopshaping_closed_loop(torch, riccati_cuda, at_ls_loop, ls_cfg, ls_out)
+    ls_seconds["loopshaping_closed_loop"] = time.perf_counter() - t0
+    emit({"phase": "loopshaping_seconds", **ls_seconds, "total": sum(ls_seconds.values())})
+    if args.loopshaping_out:
+        with open(args.loopshaping_out, "w") as f:
+            json.dump(ls_out, f)
     if args.profile:
         profile_slq(torch)
         profile_main_path(torch)
@@ -3395,10 +3933,12 @@ def main() -> int:
         profile_legged(torch, ck_cfg, 1, path="comkino_sqp_b1")
         profile_ipm(torch, ipm_cfg, 1)
         profile_ipm(torch, ipm_cfg, LEGGED_BATCH)
+        profile_legged(torch, ls_cfg, 1, path="loopshaping_sqp_b1")
 
     at_main, at_quad, at_legged = checks[0], checks[1], checks[2]
     shape_keys = ("nx", "nu", "B", "N", "pivots", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                  "bound_term", "bytes_ms", "flops_ms", "chain_ms", "max_abs_err")
+                  "bound_term", "bytes_ms", "flops_ms", "chain_ms", "design_floor_ms",
+                  "max_abs_err")
     b1_sweeps = b1["riccati_launches"] / (1 + b1["chains"] * b1["ticks_per_chain"])
     ipm_b1_sweeps = ipm_b1["riccati_launches"] / (1 + ipm_b1["chains"] * ipm_b1["ticks_per_chain"])
     emit({"kernels": [{
@@ -3407,10 +3947,13 @@ def main() -> int:
         "replaces": "ocs2_tpu/ops/riccati_pallas.py:189",
         "launches": sum(r["riccati_launches"]
                         for r in (run, b1, b256, closed, quad, perc, loop, ck_loop, ck_trot,
-                                  ipm_b1, ipm_b256, hyb, switch, manip_b1, manip_b256, variants))
-        + slp_run["sqp_check_riccati_launches"] + cart["ilqr"]["launches"],
+                                  ipm_b1, ipm_b256, hyb, switch, manip_b1, manip_b256, variants,
+                                  ls_loop))
+        + slp_run["sqp_check_riccati_launches"] + cart["ilqr"]["launches"]
+        + ls_trot["riccati_launches"] + ls_trot["unshaped"]["riccati_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in checks + [
-            at_b1, at_perc, at_loop, at_trot, at_slp, at_hyb, at_switch] + list(zoo.values())),
+            at_b1, at_perc, at_loop, at_trot, at_slp, at_hyb, at_switch] + list(zoo.values())
+            + list(ls_checks.values())),
         "shape": dict(zip(("nx", "nu", "B", "N"), MAIN_SHAPE)),
         "ms": at_main["kernel_ms"], "plain_ms": at_main["plain_ms"],
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
@@ -3506,7 +4049,26 @@ def main() -> int:
              **{k: zoo[(v["nx"], v["nu"], 1, URDF_N)][k]
                 for k in shape_keys + ("kernel_ms_queued",)}}
             for key, v in variants["variants"].items()
+        ] + [
+            {"path": "loopshaping_trot_b1", "launches": ls_trot["riccati_launches"],
+             "launches_per_solve": ls_trot["launches_per_solve"],
+             "share_of_solve": ls_trot["share_of_solve"],
+             "single_sweep_ms": at_ls["single_sweep_ms"],
+             **{k: at_ls[k] for k in shape_keys + ("kernel_ms_queued",)}},
+            {"path": "loopshaping_trot_b1 (the unshaped solve)",
+             "launches": ls_trot["unshaped"]["riccati_launches"],
+             "launches_per_solve": ls_trot["unshaped"]["riccati_launches"],
+             "share_of_solve": ls_trot["unshaped"]["share_of_solve"],
+             "single_sweep_ms": at_trot["single_sweep_ms"],
+             **{k: at_trot[k] for k in shape_keys + ("kernel_ms_queued",)}},
+            {"path": "loopshaping_closed_loop", "launches": ls_loop["riccati_launches"],
+             "launches_per_tick": ls_loop["launches_per_tick"],
+             "share_of_tick": ls_loop["share_of_tick"],
+             "single_sweep_ms": at_ls_loop["single_sweep_ms"],
+             **{k: at_ls_loop[k] for k in shape_keys + ("kernel_ms_queued",)}},
         ],
+        # Shapes held in kernel_check that no lane runs.
+        "checks": [{k: ls_checks[LS_BATCH_SHAPE][k] for k in shape_keys + ("kernel_ms_queued",)}],
     }, {
         "name": "riccati_ct_backward", "route": "cuda",
         "source": "ocs2_tpu_torch/csrc/riccati_ct_backward.cu",

@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -59,11 +59,14 @@ def _command(source: str, defines: Sequence[str], out: Path, verbose: bool):
 
 
 def build_libraries(
-    jobs: Iterable[Tuple[str, Sequence[str]]], verbose: bool = False
+    jobs: Iterable[Tuple[str, Sequence[str]]], verbose: bool = False,
+    logs: Optional[Dict[Tuple[str, Tuple[str, ...]], str]] = None,
 ) -> Dict[Tuple[str, Tuple[str, ...]], Path]:
     """Compile every (source, defines) job that is not built yet, all nvcc
     processes started together.  Returns {(source, defines): library path};
-    raises with the compiler's output if a build fails."""
+    raises with the compiler's output if a build fails.  With ``verbose``
+    ptxas' register and spill report of each build is printed; a ``logs``
+    dict receives it per job built here."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths, procs = {}, []
     for source, defines in jobs:
@@ -73,17 +76,19 @@ def build_libraries(
         if out.exists() or any(p[0] == out for p in procs):
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs.append((out, tmp, subprocess.Popen(
-            _command(source, defines, tmp, verbose),
+        procs.append((out, tmp, key, subprocess.Popen(
+            _command(source, defines, tmp, verbose or logs is not None),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     errors = []
-    for out, tmp, proc in procs:
+    for out, tmp, key, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {out.name}:\n{log}")
             continue
         os.replace(tmp, out)
+        if logs is not None:
+            logs[key] = log
         if verbose and log:
             print(log, flush=True)
     if errors:

@@ -30,7 +30,10 @@ from .riccati import LqrCoeffs, LqrSolution
 SOURCE = "riccati_backward.cu"
 # The sweep is written for small control-sized blocks (one scenario's
 # matrices in shared memory, a column of the solve in a thread's registers).
-MAX_DIM = 32
+# 48 is the widest a path needs: the loopshaped legged problem's nx = 24 + 24
+# (models/legged_robot/loopshaping_mpc.py), 256 threads and 89,248 bytes of
+# shared memory a scenario at (48, 12).
+MAX_DIM = 48
 # The card's limits the geometry is held to, and the kernel's own.
 NUM_SMS = 132
 MAX_SHARED_BYTES = 232448  # 227 KB a block

@@ -1,1 +1,1 @@
-"""ocs2_tpu_torch.utils — counterpart of ocs2_tpu.utils (timers only so far)."""
+"""ocs2_tpu_torch.utils — counterpart of ocs2_tpu.utils (all but profiling.py)."""

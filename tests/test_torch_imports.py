@@ -252,3 +252,32 @@ def test_model_zoo_assets_are_the_ports_own():
     for name in ("franka_panda.urdf", "ur5.urdf"):
         path = pathlib.Path(urdf.asset_path(name)).resolve()
         assert path.parent == PKG / "models" / "assets"
+
+
+@pytest.mark.parametrize("module", [
+    "utils/config.py", "oc/loopshaping.py", "models/legged_robot/loopshaping_mpc.py"])
+def test_loopshaping_modules_are_present_and_imported(fresh_import, module):
+    """Loopshaping and the config loader exist and are among the modules the
+    fresh interpreter imported without JAX or the JAX package (the port keeps
+    its own copy of the JAX package's framework-free ``utils/config.py``)."""
+    proc, _ = fresh_import
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names = proc.stdout.split("MODULES", 1)[1].split()
+    assert (PKG / module).exists()
+    assert "ocs2_tpu_torch." + module[:-3].replace("/", ".") in names
+
+
+def test_loopshaping_entry_points_default_to_the_card():
+    import inspect
+
+    from ocs2_tpu_torch.models.legged_robot import loopshaping_mpc
+    from ocs2_tpu_torch.oc import loopshaping
+    from ocs2_tpu_torch.utils import config
+
+    fns = [
+        loopshaping.first_order_filter, loopshaping.load_loopshaping_info,
+        loopshaping_mpc.anymal_loopshaping_definition, loopshaping_mpc.make_loopshaping_problem,
+        config.load_matrix,
+    ]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn

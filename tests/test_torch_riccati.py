@@ -5,8 +5,19 @@ PyTorch version (the arithmetic the kernel repeats) against the JAX batched
 path and against the Pallas kernel in interpret mode, its strict-pivot form
 against the JAX single-scenario sweep, that sweep including its NaN
 behaviour, the forward pass, the wrapper's argument checks (which run before
-any build and need no card) and the launch geometry it hands the kernel.
+any build and need no card) and the launch geometry it hands the kernel, at
+the existing shapes and at the widest pair, the loopshaped legged problem's
+(48, 12).  The kernel's own arithmetic is held too: its source is compiled
+for the host by g++ with stand-ins for its few device intrinsics (each
+thread of a block a host thread, a group's barrier a barrier of its own
+threads, the stage barriers counted as on the card) and run against the
+plain version.
 """
+import ctypes
+import re
+import shutil
+import subprocess
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,6 +70,9 @@ def both(leaves):
 CASES = {
     "b256_n12_nx5_nu3_regs": (256, 12, 5, 3, np.tile(np.float32([0.0, 1e-6, 0.1, 2.0]), 64)),
     "b512_n6_nx8_nu4": (512, 6, 8, 4, np.full((512,), 1e-6, np.float32)),
+    # The loopshaped legged problem's (nx, nu): 24 plant and 24 filter states,
+    # the projected 12 inputs; the widest pair the kernel takes.
+    "b4_n3_nx48_nu12_regs": (4, 3, 48, 12, np.float32([0.0, 1e-6, 0.1, 2.0])),
 }
 
 
@@ -188,10 +202,10 @@ def test_cuda_wrapper_accepts_checked_inputs_and_reports_dims():
     (lambda c: c._replace(Qxx=c.Qxx.transpose(-1, -2)), ValueError, "contiguous"),
     (lambda c: c._replace(Qux=c.Qux[:, :, :, :4].contiguous()), ValueError, "Qux"),
     (lambda c: c._replace(b=c.b[0]), ValueError, "dims"),
-    (lambda c: convert.lqr_coeffs_from_numpy(lq_numpy(2, 2, 33, 2, seed=9), device="cpu"),
-     ValueError, "nx, nu <= 32"),
-    (lambda c: convert.lqr_coeffs_from_numpy(lq_numpy(2, 2, 4, 33, seed=9), device="cpu"),
-     ValueError, "nx, nu <= 32"),
+    (lambda c: convert.lqr_coeffs_from_numpy(lq_numpy(2, 2, 49, 2, seed=9), device="cpu"),
+     ValueError, "nx, nu <= 48"),
+    (lambda c: convert.lqr_coeffs_from_numpy(lq_numpy(2, 2, 4, 49, seed=9), device="cpu"),
+     ValueError, "nx, nu <= 48"),
 ])
 def test_cuda_wrapper_refuses_bad_inputs_without_a_card(breakage, exc, match):
     before = riccati_cuda.launch_count
@@ -441,3 +455,264 @@ def test_convexify_leaves_a_dominant_diagonal_untouched_and_refuses_unknown_meth
     np.testing.assert_allclose(out.Quu.numpy(), tc.Quu.numpy(), atol=1e-7)
     with pytest.raises(ValueError, match="Hessian correction"):
         riccati.convexify(tc, method="cholesky")
+
+
+# -- the widest pair, (48, 12): the loopshaped legged problem ------------------
+
+
+def test_strict_plain_version_places_nan_as_jax_single_at_48_12():
+    """The strict sweep at the loopshaped problem's (48, 12): a Quu that is
+    not positive definite at node 2 of the second scenario gives NaN there
+    and at every earlier node, element for element as the JAX
+    single-scenario sweep; the first scenario agrees with it at the
+    kernel's tolerance."""
+    leaves = lq_numpy(2, 5, 48, 12, seed=48)
+    leaves["Quu"][1, 2] = -100.0 * np.eye(12, dtype=np.float32)
+    _, tc = both(leaves)
+    mine = riccati._lqr_backward_batched(tc, torch.as_tensor([1e-6, 0.0]), strict=True)
+    single = jax.jit(jriccati._lqr_backward_single)
+    for i, reg in enumerate((1e-6, 0.0)):
+        ref = single(_single(leaves, i)[0], jnp.asarray(reg, jnp.float32))
+        for f in FIELDS:
+            a, b = getattr(mine, f).numpy()[i], np.asarray(getattr(ref, f))
+            np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f)
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=f)
+    assert np.isnan(mine.gains[1, :3].numpy()).all() and np.isfinite(mine.gains[1, 3:].numpy()).all()
+    assert np.isfinite(mine.gains[0].numpy()).all()
+
+
+def test_launch_geometry_at_48_12():
+    """A group of 8 warps (each thread 2-3 of the 576 2 x 2 tiles of a 48 x 48
+    product), 89,248 bytes a scenario, one scenario a block at B = 1 and
+    B = 256 (256 threads fill the kernel's launch bounds), every leaf by the
+    bulk copy; the wrapper accepts the pair and refuses it only for the
+    device."""
+    assert riccati_cuda.threads_per_scenario(48, 12) == 256
+    assert riccati_cuda.shared_bytes_per_scenario(48, 12) == 89248
+    for batch in (1, 256):
+        g = riccati_cuda.launch_geometry(48, 12, batch)
+        assert (g.blocks, g.threads, g.shared_bytes, g.scenarios_per_block) == (
+            batch, 256, 89248, 1)
+    assert set(riccati_cuda.copy_widths(48, 12).values()) == {16}
+    c = convert.lqr_coeffs_from_numpy(lq_numpy(2, 2, 48, 12, seed=9), device="cpu")
+    assert riccati_cuda.check_inputs(c, torch.zeros(2)) == (2, 2, 48, 12)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        riccati_cuda.lqr_backward_cuda(c, torch.zeros(2))
+
+
+# -- the kernel's arithmetic, compiled for the host ------------------------------
+
+HOST_RTOL, HOST_ATOL = 1e-5, 1e-6
+
+_HOST_RUNTIME = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <condition_variable>
+#include <cstring>
+#include <map>
+#include <memory>
+#include <mutex>
+struct Dim3 { unsigned x = 0; };
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return float2{a, b}; }
+extern thread_local Dim3 threadIdx, blockIdx;
+extern thread_local std::barrier<>* t_group_barrier;
+extern thread_local std::barrier<>* t_block_barrier;
+inline void __syncthreads() { t_block_barrier->arrive_and_wait(); }
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
+enum cudaError_t { cudaSuccess = 0 };
+"""
+
+# Host stand-ins for the kernel's device intrinsics: a group's barrier is a
+# barrier of its own threads; a copy lands at once; an mbarrier counts its
+# arrivals and its bytes and completes a phase when both reach zero, as the
+# card's does, and a wait blocks until the phase of its parity completed.
+_HOST_INTRINSICS = r"""
+constexpr int kTilesWide = ((NX > NU ? NX : NU) + 1) / 2;
+constexpr int kGroupWarps =
+    (kTilesWide * kTilesWide + 16) / 32 < 1 ? 1
+    : ((kTilesWide * kTilesWide + 16) / 32 > 8 ? 8 : (kTilesWide * kTilesWide + 16) / 32);
+constexpr int G = 32 * kGroupWarps;
+
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline float quiet_nan() { return __int_as_float(0x7fc00000); }
+inline float reciprocal(float x) { return 1.0f / x; }
+inline void group_sync(int) { t_group_barrier->arrive_and_wait(); }
+
+struct HostMbarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int count = 0, pending = 0;
+  long long tx = 0;
+  unsigned phase = 0;
+  void complete_if_done() {
+    if (pending == 0 && tx == 0) {
+      ++phase;
+      pending = count;
+      cv.notify_all();
+    }
+  }
+};
+inline HostMbarrier* host_mbarrier(uint64_t* bar) {
+  static std::mutex table_mutex;
+  static std::map<const void*, std::unique_ptr<HostMbarrier>> table;
+  std::lock_guard<std::mutex> lock(table_mutex);
+  auto& slot = table[bar];
+  if (!slot) slot.reset(new HostMbarrier());
+  return slot.get();
+}
+inline void mbarrier_init(uint64_t* bar, int count) {
+  HostMbarrier* h = host_mbarrier(bar);
+  std::lock_guard<std::mutex> lock(h->m);
+  h->count = h->pending = count;
+  h->tx = 0;
+  h->phase = 0;
+}
+inline void mbarrier_init_fence() {}
+inline void mbarrier_expect_bytes(uint64_t* bar, int bytes) {
+  HostMbarrier* h = host_mbarrier(bar);
+  std::lock_guard<std::mutex> lock(h->m);
+  h->tx += bytes;
+  --h->pending;
+  h->complete_if_done();
+}
+inline void mbarrier_wait(uint64_t* bar, uint32_t parity) {
+  HostMbarrier* h = host_mbarrier(bar);
+  std::unique_lock<std::mutex> lock(h->m);
+  h->cv.wait(lock, [&] { return (h->phase & 1u) != parity; });
+}
+inline void async_proxy_fence() {}
+inline void bulk_copy(float* dst, const float* src, int bytes, uint64_t* bar) {
+  std::memcpy(dst, src, bytes);
+  HostMbarrier* h = host_mbarrier(bar);
+  std::lock_guard<std::mutex> lock(h->m);
+  h->tx -= bytes;
+  h->complete_if_done();
+}
+inline void copy4(float* dst, const float* src) { *dst = *src; }
+inline void copy4_arrive(uint64_t* bar) {
+  HostMbarrier* h = host_mbarrier(bar);
+  std::lock_guard<std::mutex> lock(h->m);
+  --h->pending;
+  h->complete_if_done();
+}
+"""
+
+_HOST_MAIN = r"""
+#include "cuda_runtime.h"
+#include <thread>
+#include <vector>
+thread_local Dim3 threadIdx, blockIdx;
+thread_local std::barrier<>* t_group_barrier;
+thread_local std::barrier<>* t_block_barrier;
+alignas(16) static unsigned char smem_block[232448];
+#include "kernel_body.inc"
+extern "C" int host_shared_bytes() { return kScenarioBytes; }
+extern "C" int host_threads_per_scenario() { return G; }
+extern "C" void host_run(const float* A, const float* Bm, const float* bv, const float* Qxx,
+    const float* qx, const float* Quu, const float* qu, const float* Qux, const float* Qf,
+    const float* qf, const float* reg, float* gains, float* kff, float* vS, float* vs,
+    float* dv1, float* dv2, int batch, int n, int spb, int strict) {
+  for (int bk = 0; bk < (batch + spb - 1) / spb; ++bk) {
+    std::barrier<> block(spb * G);
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    for (int w = 0; w < spb; ++w) bars.emplace_back(new std::barrier<>(G));
+    std::vector<std::thread> lanes;
+    for (int t = 0; t < spb * G; ++t) {
+      std::barrier<>* bar = bars[t / G].get();
+      lanes.emplace_back([=, &block] {
+        threadIdx.x = t;
+        blockIdx.x = bk;
+        t_group_barrier = bar;
+        t_block_barrier = &block;
+        riccati_backward_kernel(A, Bm, bv, Qxx, qx, Quu, qu, Qux, Qf, qf, reg, gains, kff, vS,
+                                vs, dv1, dv2, batch, n, spb, strict);
+      });
+    }
+    for (auto& lane : lanes) lane.join();
+  }
+}
+"""
+
+
+def _host_kernel(tmp_path, nx, nu):
+    """The kernel's source up to its host interface, with host stand-ins for
+    its device intrinsics and the block's shared memory a static array, built
+    by g++ as a library: each thread of a block a host thread, a group's
+    barrier a barrier of its own threads, the stage barriers counted as on
+    the card."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the kernel's source for the host")
+    from ocs2_tpu_torch.ops import _build
+
+    src = (_build.CSRC_DIR / riccati_cuda.SOURCE).read_text()
+    body = src.split("// -- host interface")[0]
+    body = re.sub(r"// -- device intrinsics.*?// -- end of device intrinsics[^\n]*\n",
+                  lambda _: _HOST_INTRINSICS, body, count=1, flags=re.S)
+    body = body.replace("#include <cuda_runtime.h>", '#include "cuda_runtime.h"')
+    body = body.replace("extern __shared__ __align__(16) unsigned char smem_raw[];",
+                        "unsigned char* smem_raw = smem_block;")
+    assert "asm" not in body and "__shared__" not in body
+    (tmp_path / "cuda_runtime.h").write_text(_HOST_RUNTIME)
+    (tmp_path / "kernel_body.inc").write_text(body)
+    (tmp_path / "host_main.cpp").write_text(_HOST_MAIN)
+    out = tmp_path / f"libhost_{nx}_{nu}.so"
+    built = subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-fno-strict-aliasing", "-Wno-unknown-pragmas", "-shared",
+         "-fPIC", f"-I{tmp_path}", f"-DNX={nx}", f"-DNU={nu}", "-o", str(out),
+         str(tmp_path / "host_main.cpp"), "-lpthread"],
+        capture_output=True, text=True, timeout=300)
+    assert built.returncode == 0, built.stderr[-4000:]
+    lib = ctypes.CDLL(str(out))
+    lib.host_run.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
+    return lib
+
+
+@pytest.mark.parametrize("case", ["loopshaping_48_12_strict_nan", "ballbot_10_3_two_a_block"])
+def test_kernel_source_on_the_host_matches_the_plain_version(tmp_path, case):
+    """The kernel's phases, barriers, stage pipeline and layout, run on the
+    host: equal to the plain version at 1e-5 / 1e-6, with NaN where the
+    plain version has it, and the layout's bytes and the group's threads
+    equal to the wrapper's.  (48, 12): 256 threads a scenario on one group
+    barrier, each thread 2-3 tiles of the 48 x 48 products, every leaf by the
+    bulk copy, strict pivots with Quu = -100 I at node 3 of the second
+    scenario.  (10, 3): 32 threads a scenario, two scenarios a block and an
+    odd batch (the last block's second group leaves at once), six leaves by
+    4-byte copies that arrive on the stage barrier one by one, clamped
+    pivots.  The absolute tolerance is 1e-6 times the field's largest entry
+    (at least 1): at (48, 12) the plain version itself is 4.0e-6 from a
+    float64 sweep in value_S (largest entry 9.4), and an entry that
+    cancels to 0.02 from products of depth 48 keeps that absolute error
+    whatever the order of the sums."""
+    if case == "loopshaping_48_12_strict_nan":
+        nx, nu, batch, n, spb, strict = 48, 12, 2, 6, 1, True
+    else:
+        nx, nu, batch, n, spb, strict = 10, 3, 3, 8, 2, False
+    lib = _host_kernel(tmp_path, nx, nu)
+    assert lib.host_shared_bytes() == riccati_cuda.shared_bytes_per_scenario(nx, nu)
+    assert lib.host_threads_per_scenario() == riccati_cuda.threads_per_scenario(nx, nu)
+    leaves = lq_numpy(batch, n, nx, nu, seed=50 + nx)
+    if strict:
+        leaves["Quu"][1, 3] = -100.0 * np.eye(nu, dtype=np.float32)
+        assert riccati_cuda.launch_geometry(nx, nu, batch).scenarios_per_block == spb
+    _, tc = both(leaves)
+    reg = torch.as_tensor(np.resize(np.float32([1e-6, 0.0, 0.1, 2.0]), batch))
+    out = riccati.LqrSolution(
+        torch.full((batch, n, nu, nx), 7.0), torch.full((batch, n, nu), 7.0),
+        torch.full((batch, n + 1, nx, nx), 7.0), torch.full((batch, n + 1, nx), 7.0),
+        torch.full((batch,), 7.0), torch.full((batch,), 7.0))
+    lib.host_run(*(t.data_ptr() for t in (*tc, reg, *out)), batch, n, spb, int(strict))
+    ref = riccati._lqr_backward_batched(tc, reg, strict=strict)
+    for f in FIELDS:
+        a, b = getattr(out, f).numpy(), getattr(ref, f).numpy()
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f)
+        scale = max(1.0, float(np.abs(b[~np.isnan(b)]).max()))
+        np.testing.assert_allclose(a[~np.isnan(b)], b[~np.isnan(b)], rtol=HOST_RTOL,
+                                   atol=HOST_ATOL * scale, err_msg=f)
+    assert np.isnan(ref.gains.numpy()).any() == strict
