@@ -16,8 +16,8 @@ main paths and checks that they went through the kernels:
   both is the CUDA kernel at (nx, nu) = (24, 12), with strict pivots at B = 1;
 * the MPC runtime in closed loop: ``Mpc`` (the same legged SQP at N = 100,
   ``SwitchedModelReferenceManager`` on a 0.7 s trot) in ``MpcMrtInterface``,
-  driven by ``dummy_loop`` for 0.3 s at 400 Hz control and 50 Hz MPC (15
-  ticks, 120 control steps); each tick's sweep is the kernel at
+  driven by ``dummy_loop`` for 0.2 s at 400 Hz control and 50 Hz MPC (10
+  ticks, 80 control steps); each tick's sweep is the kernel at
   (1, 100, 24, 12) with strict pivots, one launch per SQP iteration;
 * ``sqp.solve`` on the quadrotor (nx = 12, nu = 4), a batch of 4096 hover
   scenarios, 40 intervals over 2 s, rk4, 8 iterations at most; the sweep is
@@ -26,7 +26,7 @@ main paths and checks that they went through the kernels:
   approximation, its SDF and 1,000 height / plane queries, card against
   CPU); ``perceptive_mpc`` (the segmented-planes problem on a decomposed
   stepped map, N = 46 over 1.4 s, a host foothold re-plan and one solve per
-  tick, 8 ticks); ``perceptive_closed_loop`` (``Mpc`` with the
+  tick, 4 ticks); ``perceptive_closed_loop`` (``Mpc`` with the
   ``PerceptiveReferenceManager`` in ``dummy_loop``, N = 32, 2 s at 60 Hz
   control and 15 Hz MPC); the sweep of both is the kernel at (24, 12) with
   strict pivots;
@@ -38,7 +38,7 @@ main paths and checks that they went through the kernels:
 * the interior-point solver on the flagship problem with the hard friction
   cone (the barrier's inequality; the foot constraint projected, N = 100,
   15 iterations at most): ``legged_ipm_tick_b1`` (a cold solve from the
-  weight-compensating guess, then a chain of 3 receding-horizon ticks; the
+  weight-compensating guess, then a chain of 2 receding-horizon ticks; the
   kernel at (1, 100, 24, 12) with strict pivots, one launch per IPM
   iteration) and ``legged_ipm_b256`` (the b256 lane's scenarios; the kernel
   at (256, 100, 24, 12), clamped), each held against the sweep's torch-op
@@ -74,9 +74,20 @@ main paths and checks that they went through the kernels:
   (1, 40, 48, 12) with strict pivots; beside it the unshaped solve of the
   same task at (1, 40, 24, 12), whose shaping functional the shaped solve
   must undercut) and ``loopshaping_closed_loop`` (``Mpc`` in ``dummy_loop``,
-  N = 28, 12.5 Hz MPC and 50 Hz control for 0.8 s, the kernel at
+  N = 28, 12.5 Hz MPC and 50 Hz control for 0.48 s, the kernel at
   (1, 28, 48, 12)), both held against the JAX package's record in
-  ``tests/torch_data/``.
+  ``tests/torch_data/``;
+* MPC-Net (``ocs2_tpu_torch/learning/``), trained on the card:
+  ``mpcnet_legged_train`` (``make_legged_mpcnet()``: a mixture of 3 linear
+  experts, 4 scenarios x 4 control steps a round, 2 rounds of 150 Adam
+  steps, each control step one batched SQP solve through the kernel at
+  (4, 14, 24, 12) with clamped pivots, ``evaluate`` at (1, 14, 24, 12)
+  strict), ``mpcnet_legged_datagen_b256`` (one data round of 256 scenarios,
+  the kernel at (256, 14, 24, 12), then 20 Adam steps) and
+  ``mpcnet_ballbot_train`` (``make_ballbot_mpcnet()``: 8 scenarios x 6
+  steps, 3 rounds of 200 Adam steps, the kernel at (8, 16, 10, 3)), each
+  round 0 held against the JAX package's record in ``tests/torch_data/``
+  and the trained policies against the JAX tests' criteria.
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  The continuous-time kernel's
@@ -499,12 +510,13 @@ def check_legged_solution(torch, cfg, sol, what):
     return worst
 
 
-# Chains of 8 ticks of the legged tick at B = 1: one, not five (two until the
-# loopshaping phases took the script past its time target, PERF.md §4).
-B1_CHAINS = 1
+# Chains of the legged tick at B = 1: one of 4 ticks (two chains until the
+# loopshaping phases and 8 ticks until the MPC-Net phases took the script past
+# its time target, PERF.md §4).
+B1_CHAINS, B1_TICKS_PER_CHAIN = 1, 4
 
 
-def legged_tick_b1(torch, riccati_cuda, cfg, chains=B1_CHAINS, ticks_per_chain=8):
+def legged_tick_b1(torch, riccati_cuda, cfg, chains=B1_CHAINS, ticks_per_chain=B1_TICKS_PER_CHAIN):
     """The control-rate tick: chains of dependent receding-horizon ticks (the
     next tick starts at the solved xs[1], warm-started with the solved
     inputs), one synchronise per chain.  Its backward sweep is the CUDA kernel
@@ -678,9 +690,9 @@ def legged_tick_b256(torch, riccati_cuda, cfg, cold_b1, solves=TIMED_SOLVES):
 
 # -- the MPC runtime in closed loop ----------------------------------------------
 
-# 0.3 s (15 ticks; 0.5 s until the IPM and SLP phases took the script past its
-# time target, PERF.md §4).
-MPC_DURATION, MRT_HZ, MPC_HZ = 0.3, 400.0, 50.0
+# 0.2 s (10 ticks; 0.5 s until the IPM and SLP phases and 0.3 s until the
+# MPC-Net phases took the script past its time target, PERF.md §4).
+MPC_DURATION, MRT_HZ, MPC_HZ = 0.2, 400.0, 50.0
 # The base may leave its stand height by this much over the loop: the JAX
 # package's own loop on these inputs rises 0.061 m in 0.5 s
 # (tools/legged_closed_loop_reference.py); 0.08 m is the bound its legged
@@ -726,8 +738,8 @@ def policy_foot_constraint(torch, mpc, inputs, sol):
 
 
 def legged_mpc_closed_loop(torch, riccati_cuda, closed_loop_out=None):
-    """``dummy_loop`` over the legged MPC: 15 ticks at N = 100 and 120 control
-    steps.  Per tick: the solve (``solve_timer``), the host work of
+    """``dummy_loop`` over the legged MPC: MPC_DURATION at MPC_HZ (10 ticks at
+    N = 100) and MRT_HZ (80 control steps).  Per tick: the solve (``solve_timer``), the host work of
     ``Mpc.run`` outside it (``tick_timer`` - ``solve_timer``), the SQP
     iterations, whether the warm start was spread.  Per control step: the
     host clock between two observer calls, each after a synchronise (policy
@@ -983,10 +995,10 @@ def quadrotor_sqp_b4096(torch, riccati_cuda, at_quad, iterations_out=None,
 # -- the perceptive lane -----------------------------------------------------------
 
 # bench.py:287 (bench_perceptive_mpc): the stepped map, 1.4 s over 46 intervals,
-# 8 SQP iterations at most; 8 ticks after a warm-up (20 until the ComKino phases
-# and 12 until the loopshaping phases took the script past its time target,
-# PERF.md §4).
-PERC_STEP_X, PERC_STEP_H, PERC_HORIZON, PERC_N, PERC_TICKS = 0.45, 0.12, 1.4, 46, 8
+# 8 SQP iterations at most; 4 ticks after a warm-up (20 until the ComKino phases,
+# 12 until the loopshaping phases and 8 until the MPC-Net phases took the
+# script past its time target, PERF.md §4).
+PERC_STEP_X, PERC_STEP_H, PERC_HORIZON, PERC_N, PERC_TICKS = 0.45, 0.12, 1.4, 46, 4
 # tests/test_segmented_planes.py:332 (TestClosedLoopPerceptive): the 0.08 m step,
 # N = 32 over 1 s, 6 iterations at most, 2 s at 60 Hz control and 15 Hz MPC.
 LOOP_STEP_H, LOOP_HORIZON, LOOP_N = 0.08, 1.0, 32
@@ -1523,10 +1535,10 @@ def comkino_trot(torch, riccati_cuda, cfg, at_trot, solves=TIMED_SOLVES):
 # weight-compensating guess: from zero inputs the reference's IPM fails
 # (ROADMAP.md §3).
 IPM_MAX_ITERATIONS = 15
-# One chain of 3 ticks (two chains of 6 until the loopshaping phases took the
-# script past its time target, PERF.md §4); tools/legged_ipm_reference.py runs
-# as many.
-IPM_CHAINS, IPM_TICKS_PER_CHAIN = 1, 3
+# One chain of 2 ticks (two chains of 6 until the loopshaping phases and 3
+# ticks until the MPC-Net phases took the script past its time target,
+# PERF.md §4); tools/legged_ipm_reference.py runs as many.
+IPM_CHAINS, IPM_TICKS_PER_CHAIN = 1, 2
 # IPM stops when the total violation, which includes the slack gap |h - s|,
 # falls below constraint_tol = 1e-4.  On flat ground the stance slacks sit
 # near 92, where float32 rounds h and s to 5.5e-6 each: over the ~300 stance
@@ -2504,6 +2516,32 @@ ZOO_SHAPES = [(4, 1, 4096, 60), (9, 8, 1, 40), (9, 8, 256, 40), (7, 7, 1, 40), (
 ZOO_CT_SHAPE = (4, 1, 4096, 60, ())
 
 
+# MPC-Net (ocs2_tpu/learning/robots.py's defaults).  The record
+# (tools/mpcnet_reference.py) holds the JAX package's training runs from
+# these PRNGKeys; mpcnet_legged_datagen_b256 draws its starts from a numpy
+# seed as legged_x0_sampler draws them, and the record holds its first 32.
+MPCNET_RECORD = os.path.join(_DATA, "mpcnet_reference.npz")
+MPCNET_KEYS = {"legged": 5, "ballbot": 2}
+MPCNET_B256, MPCNET_B256_RECORD, MPCNET_B256_SEED, MPCNET_B256_STEPS = 256, 32, 17, 20
+MPCNET_SHAPES = {"legged": (24, 12, 4, 14), "b256": (24, 12, MPCNET_B256, 14),
+                 "ballbot": (10, 3, 8, 16)}
+# evaluate() rolls one scenario out, so its solves are strict at B = 1.
+MPCNET_EVAL_SHAPES = {"legged": (24, 12, 1, 14), "ballbot": (10, 3, 1, 16)}
+MPCNET_BALLBOT_LEAN = 0.12  # tests/test_learning.py:278-309: x[3] = 0.12
+# legged_x0_sampler's scales (momenta, base position, orientation, joints).
+MPCNET_LEGGED_X0_SCALE = np.concatenate([np.full(6, 0.05), np.full(3, 0.02), np.full(3, 0.03),
+                                         np.full(12, 0.05)]).astype(np.float32)
+
+
+def mpcnet_b256_x0s(default_state, batch=MPCNET_B256):
+    """Perturbed stands as legged_x0_sampler makes them, the noise from
+    MPCNET_B256_SEED, computed in numpy float32 from the given default state
+    (each package passes its own)."""
+    noise = np.random.default_rng(MPCNET_B256_SEED).standard_normal((batch, 24)).astype(np.float32)
+    base = np.asarray(default_state, np.float32)
+    return (base[None] + MPCNET_LEGGED_X0_SCALE[None] * noise).astype(np.float32)
+
+
 def cartpole_x0s(batch):
     """[pi + 0.3 a, 0.5 b, 0, 0], a and b uniform in [-1, 1] from CARTPOLE_SEED."""
     ab = np.random.default_rng(CARTPOLE_SEED).uniform(-1.0, 1.0, (batch, 2))
@@ -2938,11 +2976,12 @@ LS_N, LS_HORIZON, LS_TIMED_SOLVES = 40, 1.0, 1
 LS_SHAPE = (48, 12, 1, LS_N)
 # The dummy MRT loop (:158-199): Mpc at N = 28 over 0.7 s, 6 iterations at
 # most, 12.5 Hz MPC and 50 Hz control (rk4, 2 substeps: |lambda| h = 1 at
-# the 100 rad/s pole), from the augmented default state; 0.8 s (10 ticks) of
-# the test's 1.2 s (15): a depth cut for the card's time (PERF.md §4; the
-# record holds the 15).
+# the 100 rad/s pole), from the augmented default state; 0.48 s (6 ticks) of
+# the test's 1.2 s (15): a depth cut for the card's time (PERF.md §4: 10 ticks
+# until the MPC-Net phases; the record holds the 15, and the float64-eigh
+# window the loop is held over ends at its 17th control step, inside the 24).
 LS_LOOP_N, LS_LOOP_HORIZON, LS_LOOP_MAX_ITERATIONS = 28, 0.7, 6
-LS_LOOP_DURATION, LS_MRT_HZ, LS_MPC_HZ = 0.8, 50.0, 12.5
+LS_LOOP_DURATION, LS_MRT_HZ, LS_MPC_HZ = 0.48, 50.0, 12.5
 LS_LOOP_SHAPE = (48, 12, 1, LS_LOOP_N)
 # The batch shape K1 is also checked at (clamped pivots; no lane runs it).
 LS_BATCH_SHAPE = (48, 12, 256, LS_N)
@@ -3278,7 +3317,7 @@ def loopshaping_closed_loop(torch, riccati_cuda, at_loop, cfg, out=None):
     """The loopshaped dummy MRT loop (tests/test_legged_loopshaping.py:
     158-199): ``Mpc`` on the loopshaped problem with the gait's reference
     manager, N = 28 over 0.7 s, 6 iterations at most, 12.5 Hz MPC, 50 Hz
-    control for LS_LOOP_DURATION from the augmented stance (10 ticks, 40
+    control for LS_LOOP_DURATION from the augmented stance (6 ticks, 24
     control steps of rk4 with 2 substeps); each tick's sweep is K1 at
     (1, 28, 48, 12) with strict pivots, one launch an iteration.  Held
     against the JAX package's loop (the record) by hold_loop_first_tick (the
@@ -3359,6 +3398,464 @@ def loopshaping_closed_loop(torch, riccati_cuda, at_loop, cfg, out=None):
     if out is not None:
         out["loop"] = {"iterations_per_tick": its, "merit_per_tick": [k["merit"] for k in ticks],
                        "states": states.tolist()}
+    return rec_out
+
+
+# -- MPC-Net -------------------------------------------------------------------------
+
+MPCNET_FIELDS = ("t", "x", "u_star", "h0", "hu", "Huu")
+# Round 0's Adam steps replay the record's draws on the port's own samples,
+# which sit within SOLVE_ATOL + SOLVE_RTOL |value| of the record's (or within
+# the JAX package's spread).  The Hamiltonian loss and Adam's update are
+# smooth in the samples, so the loss curve and the weights follow them:
+# losses within MPCNET_LOSS_ATOL + MPCNET_LOSS_RTOL |loss|, weights within
+# MPCNET_WEIGHT_ATOL (PERF.md §6: what the CPU and the card give).
+MPCNET_LOSS_RTOL, MPCNET_LOSS_ATOL, MPCNET_WEIGHT_ATOL = 1e-3, 1e-3, 1e-3
+MPCNET_DIVERGENCE = 1.5  # tests/test_learning.py:365-366: a round's last loss <= 1.5 x its first
+MPCNET_FORCE_COLS = {"legged": 12, "b256": 12, "small": 12}  # u*'s contact forces
+
+
+def mpcnet_record_weights(rec, prefix):
+    """The export-format weights ({"params/<layer>/kernel": ...}) the record
+    holds under ``prefix`` (e.g. "legged/init")."""
+    head = prefix + "/"
+    return {k[len(head):]: v for k, v in rec.items() if k.startswith(head + "params/")}
+
+
+def mpcnet_record_sampler(torch, rec, lane, device=None):
+    """An x0 sampler that returns the record's draws in the order the
+    training loop asks for them: the example start, then each round's
+    starts (on ``device``, DEVICE by default)."""
+    calls, device = [], device or DEVICE
+
+    def sampler(generator, n):
+        key = f"{lane}/example_x" if not calls else f"{lane}/r{len(calls) - 1}/x0s"
+        x = np.array(rec[key], np.float32).reshape(-1, rec[key].shape[-1])
+        assert len(x) == n, (key, len(x), n)
+        calls.append(key)
+        return torch.as_tensor(x, device=device)
+
+    return sampler
+
+
+def hold_mpcnet_samples(samples, rec, prefix, steps, what, scenarios=None, force_cols=0):
+    """MPC-Net samples ([S * steps, ...], scenario-major) against the
+    record's (``prefix/samples/*``), scenario by scenario and field by
+    field: within SOLVE_ATOL + SOLVE_RTOL |value|, or, where the JAX
+    package's own routes to the scenario part by more than SOLVE_ATOL
+    (``prefix/spread/*``), within that spread, never past it.  The first
+    ``force_cols`` columns of u* are the legged robot's contact forces,
+    whose split between the stance legs is held by a 1e-3 weight only (the
+    matched quirk of ROADMAP.md §3): they are held within FORCE_ATOL +
+    SOLVE_RTOL |value|, as compare_with_ties holds the re-solved ticks'
+    forces, and the scenarios where they lie past the JAX spread are
+    reported.  Returns the largest difference of each field
+    and the scenarios held to the spread."""
+    err, held, forces_past = {}, set(), []
+    for f in MPCNET_FIELDS:
+        a = getattr(samples, f).detach().cpu().double().numpy()
+        b = np.asarray(rec[f"{prefix}/samples/{f}"], np.float64)
+        s = scenarios or b.shape[0] // steps
+        a = a[: s * steps]
+        assert a.shape == b.shape, (what, f, a.shape, b.shape)
+        d = np.abs(a - b)
+        tol = SOLVE_ATOL + SOLVE_RTOL * np.abs(b)
+        spread = np.asarray(rec[f"{prefix}/spread/{f}"], np.float64)
+        if f == "u_star" and force_cols:
+            fd = d[:, :force_cols].reshape(s, -1)
+            force_tol = FORCE_ATOL + SOLVE_RTOL * np.abs(b[:, :force_cols]).reshape(s, -1)
+            assert bool((fd <= force_tol).all()), (f"{what}: contact forces of u*",
+                                                  float(fd.max()))
+            forces_past = np.nonzero(fd.max(1) > np.maximum(spread, SOLVE_ATOL))[0].tolist()
+            err["u_star_forces"] = float(fd.max())
+            d, tol = d[:, force_cols:], tol[:, force_cols:]
+        d, tol = d.reshape(s, -1), tol.reshape(s, -1)
+        ok = (d <= tol).all(1)
+        wide = (spread > SOLVE_ATOL) & (d <= np.maximum(tol, spread[:, None])).all(1)
+        bad = np.nonzero(~(ok | wide))[0].tolist()
+        assert not bad, (f"{what}: samples outside the tolerance and the JAX package's spread",
+                         f, bad, float(d.max()))
+        held |= set(np.nonzero(~ok)[0].tolist())
+        err[f] = float(d.max())
+    err["held_to_jax_spread"] = sorted(held)
+    err["forces_past_jax_spread"] = forces_past
+    return err
+
+
+def hold_mpcnet_round0(info, rec, lane, what):
+    """Round 0 of a training run against the record: its samples
+    (hold_mpcnet_samples), its Adam losses on the record's draws and the
+    weights after them (MPCNET_LOSS_*, MPCNET_WEIGHT_ATOL)."""
+    steps = rec[f"{lane}/r0/samples/t"].shape[0] // rec[f"{lane}/r0/x0s"].shape[0]
+    out = {"samples": hold_mpcnet_samples(info["samples"], rec, f"{lane}/r0", steps, what,
+                                          force_cols=MPCNET_FORCE_COLS.get(lane, 0))}
+    mine = np.asarray(info["step_losses"], np.float64)
+    ref = np.asarray(rec[f"{lane}/r0/losses"], np.float64)
+    d = np.abs(mine - ref)
+    assert mine.shape == ref.shape and bool(
+        (d <= MPCNET_LOSS_ATOL + MPCNET_LOSS_RTOL * np.abs(ref)).all()), (
+        f"{what}: round 0's losses", float(d.max()), int(d.argmax()))
+    want = mpcnet_record_weights(rec, f"{lane}/r0/weights")
+    assert info["weights"].keys() == want.keys(), (what, sorted(info["weights"]), sorted(want))
+    w_err = max(float(np.abs(info["weights"][k] - want[k]).max()) for k in want)
+    assert w_err <= MPCNET_WEIGHT_ATOL, (f"{what}: weights after round 0", w_err)
+    out.update({"loss_max_abs_err": float(d.max()), "loss_max_rel_err": float(
+        (d / np.maximum(np.abs(ref), 1e-12)).max()), "weights_max_abs_err": w_err})
+    return out
+
+
+class NonFiniteQpSteps:
+    """Counts the QP solves of ``solvers.sqp`` whose forward pass is not
+    finite (every scenario of every iteration the batched loop runs), on the
+    device, without a host read until ``take``: the tool's count of the JAX
+    package (tools/mpcnet_reference.py) beside the port's."""
+
+    def __init__(self, torch):
+        from ocs2_tpu_torch.solvers import sqp
+
+        self.torch, self.sqp, self.count = torch, sqp, None
+
+    def __enter__(self):
+        torch, original = self.torch, self.sqp.lqr_forward
+        self.original = original
+
+        def forward(qp, sol, dx0):
+            dxs, dus = original(qp, sol, dx0)
+            bad = ~(torch.isfinite(dxs).flatten(1).all(1) & torch.isfinite(dus).flatten(1).all(1))
+            self.count = bad.sum() if self.count is None else self.count + bad.sum()
+            return dxs, dus
+
+        self.sqp.lqr_forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.sqp.lqr_forward = self.original
+
+    def take(self) -> int:
+        out, self.count = (0 if self.count is None else int(self.count)), None
+        return out
+
+
+def mpcnet_train_lane(torch, riccati_cuda, net, rec, lane, what):
+    """``Mpcnet.train`` from the record's initial weights and starts, round
+    0's Adam steps on the record's draws (later rounds draw from a
+    generator): per round its samples, losses, weights after round 0, time,
+    SQP iterations and non-finite QP steps, and the run's K1 launches."""
+    from ocs2_tpu_torch import convert
+    from ocs2_tpu_torch.learning import export
+
+    s = net.s
+    policy = convert.policy_from_numpy(mpcnet_record_weights(rec, f"{lane}/init"),
+                                       net.init_policy(None, rec[f"{lane}/example_x"]))
+    indices = [torch.as_tensor(rec[f"{lane}/r0/indices"])] + [None] * (s.rounds - 1)
+    rounds, iterations = [], []
+    generator = torch.Generator(device=DEVICE).manual_seed(MPCNET_KEYS[lane])
+    with NonFiniteQpSteps(torch) as nonfinite:
+
+        def on_round(info):
+            info = dict(info, nonfinite_qp_steps=nonfinite.take(),
+                        sqp_iterations=torch.stack(iterations).float().cpu())
+            iterations.clear()
+            if info["round"] == 0:
+                info["weights"] = export.export_params(info["policy"])
+            rounds.append(info)
+
+        torch.cuda.synchronize()
+        riccati_cuda.launch_count, riccati_cuda.last_launch_dims = 0, None
+        t0 = time.perf_counter()
+        policy, losses = net.train(generator, mpcnet_record_sampler(torch, rec, lane),
+                                   policy=policy, indices=indices, on_round=on_round,
+                                   on_solve=lambda sol: iterations.append(sol.iterations))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    its = torch.cat([r["sqp_iterations"].flatten() for r in rounds])
+    # Every control step is one batched solve: one launch an iteration of
+    # the batch's longest-running scenario.
+    longest = sum(float(r["sqp_iterations"].reshape(s.rollout_steps, -1).max(1).values.sum())
+                  for r in rounds)
+    assert launches == int(longest) > 0, (what, launches, longest)
+    assert dims == (s.data_scenarios, s.mpc_intervals, net.problem.nx, 12 if lane == "legged"
+                    else net.problem.nu), (what, dims)
+    for r in rounds:
+        sl = r["step_losses"]
+        assert bool(torch.isfinite(sl).all()), (what, r["round"], sl)
+    return dict(policy=policy, losses=losses, rounds=rounds, seconds=seconds, launches=launches,
+                dims=list(dims), sqp_iterations_per_solve=float(its.mean()),
+                longest=longest)
+
+
+def mpcnet_round_metrics(r, s):
+    samples = s.data_scenarios * s.rollout_steps
+    return {"round": r["round"], "alpha": r["alpha"], "round_seconds": r["data_s"] + r["train_s"],
+            "data_seconds": r["data_s"], "train_seconds": r["train_s"],
+            "samples_per_s": samples / r["data_s"],
+            "train_steps_per_s": s.learning_iterations / r["train_s"],
+            "loss_first": float(r["step_losses"][0]), "loss_last": float(r["step_losses"][-1]),
+            "sqp_iterations_per_solve": float(r["sqp_iterations"].mean()),
+            "nonfinite_qp_steps": r["nonfinite_qp_steps"]}
+
+
+def mpcnet_evaluate(torch, riccati_cuda, net, policy, x0, eval_shape):
+    """``evaluate`` of one start (solves at B = 1: K1 strict), timed, with
+    its launches."""
+    torch.cuda.synchronize()
+    riccati_cuda.launch_count, riccati_cuda.last_launch_dims = 0, None
+    t0 = time.perf_counter()
+    metrics = net.evaluate(policy, 0.0, np.asarray(x0, np.float32))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    nx, nu, b, n = eval_shape
+    assert launches > 0 and dims == (b, n, nx, nu), (launches, dims)
+    out = {k: float(v) for k, v in metrics.items()}
+    assert all(np.isfinite(v) for v in out.values()), out
+    return out, {"seconds": sec, "riccati_launches": launches, "kernel_dims": list(dims)}
+
+
+def mpcnet_legged_train(torch, riccati_cuda, at_train, at_eval, out=None):
+    """MPC-Net's training loop on the legged robot at its full width,
+    ``make_legged_mpcnet()`` as the JAX package sets it: a mixture of 3
+    linear experts on the 26-wide observation (state and gait phase), the
+    weight-compensating action transform, 4 scenarios x 4 control steps of
+    0.05 s a round, 2 rounds (alpha 1 then 0) of 150 Adam steps at batch 32
+    from a memory of 512, each control step one batched SQP solve at N = 14
+    over 0.7 s (5 iterations, rk2; K1 at (4, 14, 24, 12), clamped) and the
+    Hamiltonian expansion of its solution.  From the record's initial weights
+    and starts: round 0 held against the JAX package's (hold_mpcnet_round0),
+    round 1 (the policy alone acts) by the JAX test's criteria (finite, last
+    loss <= 1.5 x first), ``evaluate`` from the record's start beside the JAX
+    package's."""
+    from ocs2_tpu_torch.learning import robots
+
+    rec = load_record(MPCNET_RECORD)
+    net = robots.make_legged_mpcnet(device=DEVICE)
+    s = net.s
+    run = mpcnet_train_lane(torch, riccati_cuda, net, rec, "legged", "mpcnet_legged_train")
+    vs_record = hold_mpcnet_round0(run["rounds"][0], rec, "legged", "mpcnet_legged_train")
+    last = run["rounds"][-1]["step_losses"]
+    assert float(last[-1]) <= MPCNET_DIVERGENCE * float(last[0]), last.tolist()
+    metrics, ev = mpcnet_evaluate(torch, riccati_cuda, net, run["policy"], rec["legged/eval/x0"],
+                                  MPCNET_EVAL_SHAPES["legged"])
+    data_s = sum(r["data_s"] for r in run["rounds"])
+    rec_out = {
+        "phase": "mpcnet_legged_train", "policy": "mixture_of_linear_experts (3)",
+        "observation": 26, "nx": 24, "nu": 24, "scenarios": s.data_scenarios,
+        "rollout_steps": s.rollout_steps, "rounds": s.rounds,
+        "learning_iterations": s.learning_iterations, "batch_size": s.batch_size,
+        "memory_capacity": s.memory_capacity, "N": s.mpc_intervals,
+        "sqp_max_iterations": s.solver_settings.max_iterations,
+        "seconds": run["seconds"], "rounds_metrics": [mpcnet_round_metrics(r, s)
+                                                       for r in run["rounds"]],
+        "samples_per_s": s.rounds * s.data_scenarios * s.rollout_steps / data_s,
+        "train_steps_per_s": s.rounds * s.learning_iterations
+        / sum(r["train_s"] for r in run["rounds"]),
+        "sqp_iterations_per_solve": run["sqp_iterations_per_solve"],
+        "riccati_launches": run["launches"], "kernel_dims": run["dims"],
+        "share_of_data_rounds": run["launches"] * 1e-3 * at_train["kernel_ms"] / data_s,
+        "vs_jax_round0": vs_record, "losses": run["losses"],
+        "jax_losses": [float(rec[f"legged/r{r}/losses"][-1]) for r in range(s.rounds)],
+        "evaluate": metrics, "jax_evaluate": {
+            k: float(rec[f"legged/eval/{k}"]) for k in ("survival_time", "incurred_hamiltonian")},
+        "evaluate_run": ev, "evaluate_share": ev["riccati_launches"] * 1e-3 * at_eval["kernel_ms"]
+        / ev["seconds"],
+        "nonfinite_qp_steps": [r["nonfinite_qp_steps"] for r in run["rounds"]],
+        "jax_nonfinite_qp_steps": [int(rec[f"legged/r{r}/nonfinite_qp_steps"])
+                                   for r in range(s.rounds)],
+    }
+    emit(rec_out)
+    if out is not None:
+        out["legged"] = {k: rec_out[k] for k in ("losses", "evaluate", "nonfinite_qp_steps")}
+        out["legged"]["round0_losses"] = run["rounds"][0]["step_losses"].tolist()
+    return rec_out
+
+
+def profile_mpcnet(torch):
+    """Where one control step of mpcnet_legged_train's data round spends its
+    time (B = 4, N = 14, the record's starts): host-clock medians of the SQP
+    solve, the LQ data of its solution, the Hamiltonian expansion, the
+    policy and the plant step, one Adam step of the round's batch, and the
+    card's busy share over one control step from torch.profiler."""
+    from ocs2_tpu_torch import convert
+    from ocs2_tpu_torch.learning import robots
+    from ocs2_tpu_torch.learning.loss import hamiltonian_from_lq
+    from ocs2_tpu_torch.learning.memory import CircularMemory
+    from ocs2_tpu_torch.oc.approx import approximate_lq
+    from ocs2_tpu_torch.solvers import sqp
+
+    rec = load_record(MPCNET_RECORD)
+    net = robots.make_legged_mpcnet(device=DEVICE)
+    st = net.s.solver_settings
+    policy = convert.policy_from_numpy(mpcnet_record_weights(rec, "legged/init"),
+                                       net.init_policy(None, rec["legged/example_x"]))
+    x = torch.as_tensor(rec["legged/r0/x0s"], device=DEVICE)
+    grid = net.grid_fn(np.float32(0.0))
+    timed = lambda fn: timed_stage(torch, fn)  # noqa: E731
+    stages = {}
+    sol, stages["sqp_solve_ms"] = timed(
+        lambda: sqp.solve(net.problem, grid, x, net.params, settings=st, device=DEVICE))
+    lq, stages["approximate_lq_ms"] = timed(lambda: approximate_lq(
+        net.problem, grid, sol.xs, sol.us, net.params, method=st.integrator,
+        substeps=st.substeps))
+    _, stages["hamiltonian_ms"] = timed(
+        lambda: hamiltonian_from_lq(lq, sol.value_S, sol.value_s, sol.xs))
+    with torch.no_grad():
+        u, stages["policy_ms"] = timed(lambda: net.policy_u(policy, np.float32(0.0), x))
+        _, stages["plant_step_ms"] = timed(
+            lambda: net.flow(net._time(np.float32(0.0)), x, u, net.s.control_dt))
+    samples = net.generate_data(policy, 1.0, np.zeros(1, np.float32), x)
+    memory = CircularMemory.create(net.example_sample(24), net.s.memory_capacity,
+                                   device=DEVICE).push_batch(samples)
+    optimizer = net.make_optimizer(policy)
+    generator = torch.Generator(device=DEVICE).manual_seed(0)
+    _, stages["adam_step_ms"] = timed(
+        lambda: net.train_step(policy, optimizer, memory, generator))
+    busy = device_busy(torch, lambda: net._mpc_step(np.float32(0.0), x))
+    emit({"phase": "profile", "path": "mpcnet_legged_control_step", "B": x.shape[0],
+          "N": net.s.mpc_intervals, "sqp_iterations": sol.iterations.tolist(),
+          "stages": stages, "profiler": busy})
+
+
+def mpcnet_legged_datagen_b256(torch, riccati_cuda, at_b256, out=None):
+    """One alpha = 1 data round of ``make_legged_mpcnet()`` over MPCNET_B256
+    starts (mpcnet_b256_x0s: legged_x0_sampler's scales, noise from a numpy
+    seed): 256 scenarios x 4 control steps, each one batched SQP solve (K1 at
+    (256, 14, 24, 12), clamped), 1,024 samples pushed into a memory of 1,024,
+    then MPCNET_B256_STEPS Adam steps.  The first MPCNET_B256_RECORD
+    scenarios' samples are held against the JAX package's vmapped round over
+    the same 256 starts (hold_mpcnet_samples, with its spread)."""
+    from ocs2_tpu_torch import convert
+    from ocs2_tpu_torch.learning import robots
+    from ocs2_tpu_torch.learning.memory import CircularMemory
+    from ocs2_tpu_torch.models.legged_robot import model
+
+    rec = load_record(MPCNET_RECORD)
+    net = robots.make_legged_mpcnet(device=DEVICE)
+    s = net.s
+    x0s = mpcnet_b256_x0s(model.default_state("cpu").numpy())
+    assert np.array_equal(x0s[:MPCNET_B256_RECORD], rec["b256/x0s"])
+    policy = convert.policy_from_numpy(mpcnet_record_weights(rec, "b256/init"),
+                                       net.init_policy(None, x0s[0]))
+    iterations = []
+    with NonFiniteQpSteps(torch) as nonfinite:
+        torch.cuda.synchronize()
+        riccati_cuda.launch_count, riccati_cuda.last_launch_dims = 0, None
+        t0 = time.perf_counter()
+        samples = net.generate_data(policy, 1.0, np.zeros(1, np.float32), x0s,
+                                    on_solve=lambda sol: iterations.append(sol.iterations))
+        torch.cuda.synchronize()
+        data_s = time.perf_counter() - t0
+        bad = nonfinite.take()
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    its = torch.stack(iterations)
+    assert launches == int(its.max(1).values.sum()) > 0, (launches, its.max(1).values)
+    assert dims == (MPCNET_B256, s.mpc_intervals, 24, 12), dims
+    memory = CircularMemory.create(net.example_sample(24), MPCNET_B256 * s.rollout_steps,
+                                   device=DEVICE)
+    memory.push_batch(samples)
+    assert memory.size == MPCNET_B256 * s.rollout_steps
+    optimizer = net.make_optimizer(policy)
+    generator = torch.Generator(device=DEVICE).manual_seed(MPCNET_B256_SEED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = torch.stack([net.train_step(policy, optimizer, memory, generator)
+                          for _ in range(MPCNET_B256_STEPS)]).cpu()
+    train_s = time.perf_counter() - t1
+    assert bool(torch.isfinite(losses).all()), losses
+    assert float(losses[-1]) <= MPCNET_DIVERGENCE * float(losses[0]), losses.tolist()
+    vs_record = hold_mpcnet_samples(samples, rec, "b256", s.rollout_steps,
+                                    "mpcnet_legged_datagen_b256", scenarios=MPCNET_B256_RECORD,
+                                    force_cols=MPCNET_FORCE_COLS["b256"])
+    rec_out = {
+        "phase": "mpcnet_legged_datagen_b256", "scenarios": MPCNET_B256,
+        "rollout_steps": s.rollout_steps, "N": s.mpc_intervals, "samples": memory.size,
+        "data_seconds": data_s, "samples_per_s": memory.size / data_s,
+        "train_steps": MPCNET_B256_STEPS, "train_seconds": train_s,
+        "train_steps_per_s": MPCNET_B256_STEPS / train_s,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "sqp_iterations_per_solve": float(its.float().mean()),
+        "riccati_launches": launches, "kernel_dims": list(dims),
+        "share_of_data_round": launches * 1e-3 * at_b256["kernel_ms"] / data_s,
+        "vs_jax_first_32": vs_record, "nonfinite_qp_steps": bad,
+        "jax_nonfinite_qp_steps": int(rec["b256/nonfinite_qp_steps"]),
+    }
+    emit(rec_out)
+    if out is not None:
+        out["b256"] = {"vs_record": vs_record, "nonfinite_qp_steps": bad}
+    return rec_out
+
+
+def mpcnet_closed_loop_err(torch, net, policy, x0, steps=6, dt=0.1):
+    """tests/test_learning.py:293-307: the sum over 6 policy steps of 0.1 s
+    (rk4, 2 substeps) of |x[:5]|^2."""
+    x = torch.as_tensor(np.asarray(x0, np.float32), device=DEVICE)[None]
+    err = 0.0
+    with torch.no_grad():
+        for k in range(steps):
+            t = np.float32(dt * k)
+            x = net.flow(net._time(t), x, net.policy_u(policy, t, x), dt)
+            err += float((x[0, :5] ** 2).sum())
+    return err
+
+
+def mpcnet_ballbot_train(torch, riccati_cuda, at_train, at_eval, out=None):
+    """MPC-Net's training loop on the ballbot, ``make_ballbot_mpcnet()`` as
+    the JAX package sets it: an MLP with one tanh layer of 6, 8 scenarios x 6
+    control steps of 0.1 s a round, 3 rounds (alpha 1, 0.5, 0) of 200 Adam
+    steps at batch 32 from a memory of 1,024, SQP at N = 16 over 1 s (6
+    iterations, rk4; K1 at (8, 16, 10, 3), clamped).  From the record's
+    initial weights and starts: round 0 held against the JAX package's
+    (hold_mpcnet_round0); the trained policy by the JAX test's criteria
+    (tests/test_learning.py:278-309): it survives the lean x[3] = 0.12 for
+    the whole evaluation with a finite incurred Hamiltonian, and its
+    closed-loop error is below the fresh policy's (the record's PRNGKey(3)
+    weights)."""
+    from ocs2_tpu_torch import convert
+    from ocs2_tpu_torch.learning import robots
+
+    rec = load_record(MPCNET_RECORD)
+    net = robots.make_ballbot_mpcnet(device=DEVICE)
+    s = net.s
+    run = mpcnet_train_lane(torch, riccati_cuda, net, rec, "ballbot", "mpcnet_ballbot_train")
+    vs_record = hold_mpcnet_round0(run["rounds"][0], rec, "ballbot", "mpcnet_ballbot_train")
+    metrics, ev = mpcnet_evaluate(torch, riccati_cuda, net, run["policy"],
+                                  rec["ballbot/eval/x0"], MPCNET_EVAL_SHAPES["ballbot"])
+    assert abs(metrics["survival_time"] - s.rollout_steps * s.control_dt) < 1e-5, metrics
+    fresh = convert.policy_from_numpy(mpcnet_record_weights(rec, "ballbot/fresh"),
+                                      net.init_policy(None, rec["ballbot/eval/x0"]))
+    err = {"trained": mpcnet_closed_loop_err(torch, net, run["policy"], rec["ballbot/eval/x0"]),
+           "fresh": mpcnet_closed_loop_err(torch, net, fresh, rec["ballbot/eval/x0"])}
+    assert err["trained"] < err["fresh"], err
+    data_s = sum(r["data_s"] for r in run["rounds"])
+    rec_out = {
+        "phase": "mpcnet_ballbot_train", "policy": "nonlinear (one tanh layer of 6)",
+        "nx": 10, "nu": 3, "scenarios": s.data_scenarios, "rollout_steps": s.rollout_steps,
+        "rounds": s.rounds, "learning_iterations": s.learning_iterations,
+        "batch_size": s.batch_size, "memory_capacity": s.memory_capacity, "N": s.mpc_intervals,
+        "sqp_max_iterations": s.solver_settings.max_iterations, "seconds": run["seconds"],
+        "rounds_metrics": [mpcnet_round_metrics(r, s) for r in run["rounds"]],
+        "samples_per_s": s.rounds * s.data_scenarios * s.rollout_steps / data_s,
+        "train_steps_per_s": s.rounds * s.learning_iterations
+        / sum(r["train_s"] for r in run["rounds"]),
+        "sqp_iterations_per_solve": run["sqp_iterations_per_solve"],
+        "riccati_launches": run["launches"], "kernel_dims": run["dims"],
+        "share_of_data_rounds": run["launches"] * 1e-3 * at_train["kernel_ms"] / data_s,
+        "vs_jax_round0": vs_record, "losses": run["losses"],
+        "jax_losses": [float(rec[f"ballbot/r{r}/losses"][-1]) for r in range(s.rounds)],
+        "evaluate": metrics, "jax_evaluate": {
+            k: float(rec[f"ballbot/eval/{k}"]) for k in ("survival_time", "incurred_hamiltonian")},
+        "evaluate_run": ev, "evaluate_share": ev["riccati_launches"] * 1e-3 * at_eval["kernel_ms"]
+        / ev["seconds"],
+        "closed_loop_err": err, "jax_closed_loop_err": {
+            k: float(rec[f"ballbot/closed_loop_err/{k}"]) for k in ("trained", "fresh")},
+        "nonfinite_qp_steps": [r["nonfinite_qp_steps"] for r in run["rounds"]],
+        "jax_nonfinite_qp_steps": [int(rec[f"ballbot/r{r}/nonfinite_qp_steps"])
+                                   for r in range(s.rounds)],
+    }
+    emit(rec_out)
+    if out is not None:
+        out["ballbot"] = {k: rec_out[k] for k in ("losses", "evaluate", "nonfinite_qp_steps")}
+        out["ballbot"]["round0_losses"] = run["rounds"][0]["step_losses"].tolist()
     return rec_out
 
 
@@ -3792,6 +4289,10 @@ def main() -> int:
     ap.add_argument("--hybrid-out", metavar="PATH",
                     help="write the hybrid solve's events, modes, cost, states and inputs as "
                          "JSON (for tools/hybrid_reference.py --compare)")
+    ap.add_argument("--mpcnet-out", metavar="PATH",
+                    help="write the MPC-Net lanes' losses, evaluations, non-finite QP steps "
+                         "and the b256 round's distance from the record as JSON (for "
+                         "tools/mpcnet_reference.py --compare)")
     ap.add_argument("--loopshaping-out", metavar="PATH",
                     help="write the loopshaped trot's and the unshaped solve's states, inputs "
                          "and shaping functionals and the loopshaped closed loop's iterations "
@@ -3829,7 +4330,8 @@ def main() -> int:
           "shapes": [list(s) for s in KERNEL_SHAPES + [STRICT_SHAPE, PERC_SHAPE, LOOP_SHAPE,
                                                        CK_TROT_SHAPE, SLP_SHAPE, HYB_SHAPE,
                                                        SWITCH_SHAPE] + ZOO_SHAPES
-                     + [LS_SHAPE, LS_LOOP_SHAPE, LS_BATCH_SHAPE]],
+                     + [LS_SHAPE, LS_LOOP_SHAPE, LS_BATCH_SHAPE]
+                     + list(MPCNET_SHAPES.values()) + list(MPCNET_EVAL_SHAPES.values())],
           "ct_shapes": [list(s[:4]) for s in CT_SHAPES + [ZOO_CT_SHAPE]]})
     checks = [
         check_kernel(torch, riccati, riccati_cuda, shape, seed=11 + i, timed=i < 3)
@@ -3868,6 +4370,12 @@ def main() -> int:
                  for i, shape in enumerate((LS_SHAPE, LS_LOOP_SHAPE, LS_BATCH_SHAPE))}
     check_strict_nan(torch, riccati, LS_SHAPE, seed=64, node=17)
     at_ls, at_ls_loop = ls_checks[LS_SHAPE], ls_checks[LS_LOOP_SHAPE]
+    # MPC-Net's data rounds (clamped batches) and its evaluations (strict).
+    mpcnet_checks = {
+        lane: check_kernel(torch, riccati, riccati_cuda, shape, seed=71 + i, timed=True)
+        for i, (lane, shape) in enumerate(list(MPCNET_SHAPES.items())
+                                          + [(f"{k}_eval", v) for k, v in
+                                             MPCNET_EVAL_SHAPES.items()])}
     if args.skip_main_path:
         return 0
     run = main_path(torch, riccati_cuda)
@@ -3923,6 +4431,23 @@ def main() -> int:
     if args.loopshaping_out:
         with open(args.loopshaping_out, "w") as f:
             json.dump(ls_out, f)
+    # MPC-Net: the training loops and the b256 data round.
+    mn_seconds, mn_out = {}, ({} if args.mpcnet_out else None)
+    t0 = time.perf_counter()
+    mn_legged = mpcnet_legged_train(torch, riccati_cuda, mpcnet_checks["legged"],
+                                    mpcnet_checks["legged_eval"], mn_out)
+    mn_seconds["mpcnet_legged_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mn_b256 = mpcnet_legged_datagen_b256(torch, riccati_cuda, mpcnet_checks["b256"], mn_out)
+    mn_seconds["mpcnet_legged_datagen_b256"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mn_ballbot = mpcnet_ballbot_train(torch, riccati_cuda, mpcnet_checks["ballbot"],
+                                      mpcnet_checks["ballbot_eval"], mn_out)
+    mn_seconds["mpcnet_ballbot_train"] = time.perf_counter() - t0
+    emit({"phase": "mpcnet_seconds", **mn_seconds, "total": sum(mn_seconds.values())})
+    if args.mpcnet_out:
+        with open(args.mpcnet_out, "w") as f:
+            json.dump(mn_out, f)
     if args.profile:
         profile_slq(torch)
         profile_main_path(torch)
@@ -3934,6 +4459,7 @@ def main() -> int:
         profile_ipm(torch, ipm_cfg, 1)
         profile_ipm(torch, ipm_cfg, LEGGED_BATCH)
         profile_legged(torch, ls_cfg, 1, path="loopshaping_sqp_b1")
+        profile_mpcnet(torch)
 
     at_main, at_quad, at_legged = checks[0], checks[1], checks[2]
     shape_keys = ("nx", "nu", "B", "N", "pivots", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3950,10 +4476,12 @@ def main() -> int:
                                   ipm_b1, ipm_b256, hyb, switch, manip_b1, manip_b256, variants,
                                   ls_loop))
         + slp_run["sqp_check_riccati_launches"] + cart["ilqr"]["launches"]
-        + ls_trot["riccati_launches"] + ls_trot["unshaped"]["riccati_launches"],
+        + ls_trot["riccati_launches"] + ls_trot["unshaped"]["riccati_launches"]
+        + sum(r["riccati_launches"] + r["evaluate_run"]["riccati_launches"]
+              for r in (mn_legged, mn_ballbot)) + mn_b256["riccati_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in checks + [
             at_b1, at_perc, at_loop, at_trot, at_slp, at_hyb, at_switch] + list(zoo.values())
-            + list(ls_checks.values())),
+            + list(ls_checks.values()) + list(mpcnet_checks.values())),
         "shape": dict(zip(("nx", "nu", "B", "N"), MAIN_SHAPE)),
         "ms": at_main["kernel_ms"], "plain_ms": at_main["plain_ms"],
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
@@ -4066,6 +4594,22 @@ def main() -> int:
              "share_of_tick": ls_loop["share_of_tick"],
              "single_sweep_ms": at_ls_loop["single_sweep_ms"],
              **{k: at_ls_loop[k] for k in shape_keys + ("kernel_ms_queued",)}},
+        ] + [
+            {"path": f"{run['phase']} (data rounds)", "launches": run["riccati_launches"],
+             "share_of_data_rounds": run["share_of_data_rounds"],
+             **{k: mpcnet_checks[lane][k] for k in shape_keys + ("kernel_ms_queued",)}}
+            for lane, run in (("legged", mn_legged), ("ballbot", mn_ballbot))
+        ] + [
+            {"path": f"{run['phase']} (evaluate)",
+             "launches": run["evaluate_run"]["riccati_launches"],
+             "share_of_evaluate": run["evaluate_share"],
+             "single_sweep_ms": mpcnet_checks[f"{lane}_eval"]["single_sweep_ms"],
+             **{k: mpcnet_checks[f"{lane}_eval"][k] for k in shape_keys + ("kernel_ms_queued",)}}
+            for lane, run in (("legged", mn_legged), ("ballbot", mn_ballbot))
+        ] + [
+            {"path": "mpcnet_legged_datagen_b256", "launches": mn_b256["riccati_launches"],
+             "share_of_data_round": mn_b256["share_of_data_round"],
+             **{k: mpcnet_checks["b256"][k] for k in shape_keys + ("kernel_ms_queued",)}},
         ],
         # Shapes held in kernel_check that no lane runs.
         "checks": [{k: ls_checks[LS_BATCH_SHAPE][k] for k in shape_keys + ("kernel_ms_queued",)}],

@@ -1,7 +1,7 @@
 """State carried across from the JAX package, given as numpy.
 
-This path has no network weights; what is carried between the two packages
-is solver state.  Each function takes a record of ``ocs2_tpu`` whose leaves
+What is carried between the two packages is solver state and, for MPC-Net,
+policy weights.  Each function takes a record of ``ocs2_tpu`` whose leaves
 were turned into numpy arrays by the caller (``rec._asdict()`` of
 ``jax.tree.map(np.asarray, rec)``; a mapping or an object with the same
 field names) and returns the port's record as float32 tensors on ``device``.
@@ -17,6 +17,7 @@ import torch
 from .core.controllers import LinearController
 from .core.reference import ModeSchedule, TargetTrajectories
 from .core.types import PerformanceIndex
+from .learning.mpcnet import MpcnetSample
 from .models.collision import SphereModel
 from .models.kinematics import Chain, Joint
 from .models.legged_robot.centroidal import MassModel
@@ -219,3 +220,30 @@ def sphere_model_from_numpy(rec: Any, device="cuda") -> SphereModel:
         pairs=torch.as_tensor(np.array(_field(rec, "pairs"), np.int64).reshape(-1, 2),
                               device=device),
     )
+
+
+def policy_from_numpy(weights: Mapping, module):
+    """Fill a policy module (``learning/policy.py``) from the JAX package's
+    exported weights (``export_params``: ``{"params/<layer>/kernel": [in,
+    out], "params/<layer>/bias": [out]}``).  Every layer of the module must
+    be given, with its shape; returns the module."""
+    layers = dict(module.named_children())
+    given = {k.split("/")[1] for k in weights if k.startswith("params/")}
+    if given != set(layers):
+        raise ValueError(f"layers {sorted(given)} do not match the module's {sorted(layers)}")
+    with torch.no_grad():
+        for name, layer in layers.items():
+            kernel = torch.as_tensor(np.array(weights[f"params/{name}/kernel"], np.float32))
+            bias = torch.as_tensor(np.array(weights[f"params/{name}/bias"], np.float32))
+            if tuple(kernel.T.shape) != tuple(layer.weight.shape):
+                raise ValueError(f"{name}: kernel {tuple(kernel.shape)} against "
+                                 f"[in, out] = {tuple(layer.weight.T.shape)}")
+            layer.weight.copy_(kernel.T)
+            layer.bias.copy_(bias)
+    return module
+
+
+def mpcnet_sample_from_numpy(rec: Any, device="cuda") -> MpcnetSample:
+    """MPC-Net samples of the JAX package (any leading dims) as float32
+    tensors on ``device``."""
+    return _record(MpcnetSample, rec, device)

@@ -1,7 +1,14 @@
 """LQ approximation of the port vs the JAX package on the CPU: ballbot (the
 slice's problem: closed-form cost blocks, jacfwd dynamics) and a toy
 constrained problem under the augmented Lagrangian (Gauss-Newton terms, AD
-fallbacks, constraint linearizations).  atol 1e-5, float32."""
+fallbacks, constraint linearizations).  atol 1e-5, float32.
+
+The JAX package's LQ approximations of the ballbot and toy fixtures
+(``JAX_RECORDS``) are stored in ``tests/torch_data/test_torch_approx_jax.npz``
+by ``tools/torch_test_records.py --record test_torch_approx``; the port runs
+live on the same seeded inputs."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +26,10 @@ from ocs2_tpu_torch.models import ballbot
 from ocs2_tpu_torch.oc import approx
 from ocs2_tpu_torch.oc.time_discretization import uniform_grid
 from ocs2_tpu_torch.solvers import al
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 ATOL = 1e-5
 T = lambda v: torch.as_tensor(np.asarray(v, np.float32))  # noqa: E731
@@ -36,20 +47,29 @@ def _flat(lq, prefix=""):
     return out
 
 
-@pytest.fixture(scope="module")
-def ballbot_lq():
+def _ballbot_inputs():
     b, n = 3, 8
     rng = np.random.default_rng(0)
     xs = (0.2 * rng.standard_normal((b, n + 1, 10))).astype(np.float32)
     us = rng.standard_normal((b, n, 3)).astype(np.float32)
+    return n, xs, us
+
+
+def _jax_ballbot_lq():
+    n, xs, us = _ballbot_inputs()
     jp, jg = jballbot.make_problem(), juniform_grid(0.0, 1.0, n)
-    ref = jax.jit(jax.vmap(
+    return jax.jit(jax.vmap(
         lambda x, u: japprox.approximate_lq(jp, jg, x, u, jballbot.make_params())
     ))(jnp.asarray(xs), jnp.asarray(us))
+
+
+@pytest.fixture(scope="module")
+def ballbot_lq():
+    n, xs, us = _ballbot_inputs()
     mine = approx.approximate_lq(
         ballbot.make_problem(device="cpu"), uniform_grid(0.0, 1.0, n), T(xs), T(us),
         ballbot.make_params(device="cpu"))
-    return _flat(mine), _flat(ref)
+    return _flat(mine), _flat(RECORDS["ballbot_lq"])
 
 
 BALLBOT_LEAVES = [
@@ -66,14 +86,27 @@ def test_ballbot_lq_matches_jax(ballbot_lq, leaf):
     np.testing.assert_allclose(mine[leaf], ref[leaf], atol=ATOL, rtol=1e-5)
 
 
-@pytest.mark.parametrize("method, substeps", [("euler", 1), ("rk2", 2)])
-def test_ballbot_dynamics_jacobians_other_integrators(method, substeps):
+INTEGRATORS = [("euler", 1), ("rk2", 2)]
+
+
+def _other_integrator_inputs():
     rng = np.random.default_rng(1)
     xs = (0.2 * rng.standard_normal((2, 5, 10))).astype(np.float32)
     us = rng.standard_normal((2, 4, 3)).astype(np.float32)
-    ref = jax.vmap(lambda x, u: japprox.approximate_lq(
+    return xs, us
+
+
+def _jax_ballbot_other_integrator(method, substeps):
+    xs, us = _other_integrator_inputs()
+    return jax.vmap(lambda x, u: japprox.approximate_lq(
         jballbot.make_problem(), juniform_grid(0.0, 0.4, 4), x, u,
         jballbot.make_params(), method=method, substeps=substeps))(jnp.asarray(xs), jnp.asarray(us))
+
+
+@pytest.mark.parametrize("method, substeps", INTEGRATORS)
+def test_ballbot_dynamics_jacobians_other_integrators(method, substeps):
+    xs, us = _other_integrator_inputs()
+    ref = RECORDS[f"ballbot_{method}_{substeps}"]
     mine = approx.approximate_lq(
         ballbot.make_problem(device="cpu"), uniform_grid(0.0, 0.4, 4), T(xs), T(us),
         ballbot.make_params(device="cpu"), method=method, substeps=substeps)
@@ -82,28 +115,45 @@ def test_ballbot_dynamics_jacobians_other_integrators(method, substeps):
             getattr(mine.dynamics, f).numpy(), np.asarray(getattr(ref.dynamics, f)), atol=ATOL)
 
 
-@pytest.fixture(scope="module")
-def toy_lq():
-    """The constrained toy problem, plain and AL-augmented, B = 3."""
+def _toy_inputs():
     b, n = 3, 6
     rng = np.random.default_rng(2)
     xs = (0.5 * rng.standard_normal((b, n + 1, 2))).astype(np.float32)
     us = rng.standard_normal((b, n, 1)).astype(np.float32)
-    al_np = toy.random_al_numpy(b, n, rng)
+    return n, xs, us, toy.random_al_numpy(b, n, rng)
+
+
+def _jax_toy_lq():
+    n, xs, us, al_np = _toy_inputs()
     jp, jg, jpar = toy.jax_problem(), juniform_grid(0.0, 1.2, n), toy.jax_params()
     j_al = jal.AlState(**{k: jnp.asarray(v) for k, v in al_np.items()})
-    tp, tg, tpar = toy.torch_problem(), uniform_grid(0.0, 1.2, n), toy.torch_params()
-    t_al = convert.al_state_from_numpy(al_np, device="cpu")
-
     ref_plain = jax.vmap(lambda x, u: japprox.approximate_lq(jp, jg, x, u, jpar))(
         jnp.asarray(xs), jnp.asarray(us))
-    mine_plain = approx.approximate_lq(tp, tg, T(xs), T(us), tpar)
     ref_aug = jax.vmap(lambda x, u, a: japprox.approximate_lq(
         jal.augment_problem(jp), jg, x, u, dict(jpar, al=a)))(
             jnp.asarray(xs), jnp.asarray(us), j_al)
+    return dict(plain=ref_plain, augmented=ref_aug)
+
+
+JAX_RECORDS = dict(
+    {f"ballbot_{m}_{k}": functools.partial(_jax_ballbot_other_integrator, m, k)
+     for m, k in INTEGRATORS},
+    ballbot_lq=_jax_ballbot_lq, toy_lq=_jax_toy_lq)
+RECORDS = Records(__file__)
+
+
+@pytest.fixture(scope="module")
+def toy_lq():
+    """The constrained toy problem, plain and AL-augmented, B = 3."""
+    n, xs, us, al_np = _toy_inputs()
+    tp, tg, tpar = toy.torch_problem(), uniform_grid(0.0, 1.2, n), toy.torch_params()
+    t_al = convert.al_state_from_numpy(al_np, device="cpu")
+    mine_plain = approx.approximate_lq(tp, tg, T(xs), T(us), tpar)
     mine_aug = approx.approximate_lq(
         al.augment_problem(tp), tg, T(xs), T(us), dict(tpar, al=t_al))
-    return (_flat(mine_plain), _flat(ref_plain)), (_flat(mine_aug), _flat(ref_aug))
+    ref = RECORDS["toy_lq"]
+    return ((_flat(mine_plain), _flat(ref["plain"])),
+            (_flat(mine_aug), _flat(ref["augmented"])))
 
 
 @pytest.mark.parametrize("which", ["plain", "augmented"])

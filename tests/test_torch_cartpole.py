@@ -15,8 +15,13 @@ order); LQ leaves atol 1e-5 times the leaf's largest entry (at least 1), as
 equal except ties at equal merit (1e-6 relative), xs and us within
 1e-3 + 1e-4 |value| (BASELINE.md's 1e-3 for solves), or, on a start where
 the JAX package's own routes part by more (the record's spread; at the
-lane's 10 iterations none does, checked below), within that spread.
+lane's 10 iterations none does, checked below), within that spread.  The
+JAX package's short solves (``JAX_RECORDS``) are stored in
+``tests/torch_data/test_torch_cartpole_jax.npz`` by
+``tools/torch_test_records.py --record test_torch_cartpole``.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +40,10 @@ from ocs2_tpu_torch.models import cartpole
 from ocs2_tpu_torch.oc import approx
 from ocs2_tpu_torch.oc.time_discretization import uniform_grid
 from ocs2_tpu_torch.solvers import al, ddp
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 MODES = ("soft", "hard", "none")
 T = lambda v: torch.as_tensor(np.asarray(v, np.float32))  # noqa: E731
@@ -138,15 +147,28 @@ SHORT_LANES = {"slq": ("none", dict(algorithm="slq", max_iterations=SHORT_IT)),
                "ilqr": ("hard", dict(algorithm="ilqr", max_iterations=SHORT_IT))}
 
 
-@pytest.mark.parametrize("lane", SHORT_LANES)
-def test_short_swing_up_matches_jax(lane):
-    """Three scattered starts, N = 20 over 2 s, 6 iterations, live in both
-    packages (the JAX side vmapped)."""
+def _jax_short_swing_up(lane):
     mode, kw = SHORT_LANES[lane]
     x0s = cs.cartpole_x0s(3)
-    ref = jax.jit(jax.vmap(lambda x: jddp.solve(
+    return dict(x0=x0s, sol=jax.jit(jax.vmap(lambda x: jddp.solve(
         jcp.make_problem(mode), juniform_grid(0.0, 2.0, SHORT_N), x, jcp.make_params(),
-        settings=jddp.DdpSettings(**kw))))(jnp.asarray(x0s))
+        settings=jddp.DdpSettings(**kw))))(jnp.asarray(x0s)))
+
+
+JAX_RECORDS = {f"short_{lane}": functools.partial(_jax_short_swing_up, lane)
+               for lane in SHORT_LANES}
+RECORDS = Records(__file__)
+
+
+@pytest.mark.parametrize("lane", SHORT_LANES)
+def test_short_swing_up_matches_jax(lane):
+    """Three scattered starts, N = 20 over 2 s, 6 iterations: the port live,
+    the JAX package's vmapped solve stored."""
+    mode, kw = SHORT_LANES[lane]
+    x0s = cs.cartpole_x0s(3)
+    rec = RECORDS[f"short_{lane}"]
+    np.testing.assert_array_equal(rec["x0"], x0s)
+    ref = rec["sol"]
     mine = ddp.solve(cartpole.make_problem(mode, device="cpu"), uniform_grid(0.0, 2.0, SHORT_N),
                      T(x0s), cartpole.make_params("cpu"), settings=ddp.DdpSettings(**kw),
                      device="cpu")

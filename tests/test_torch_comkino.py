@@ -38,6 +38,10 @@ from ocs2_tpu_torch.models.legged_robot import centroidal, comkino, interface, m
 from ocs2_tpu_torch.models.legged_robot.centroidal import DEFAULT_MASSES, SRBD_MASSES
 from ocs2_tpu_torch.ops import smallmat
 from ocs2_tpu_torch.solvers import sqp
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 RTOL, ATOL = 1e-4, 1e-5
 LQ_RTOL, LQ_ATOL = 1e-3, 1e-4
@@ -83,11 +87,13 @@ def z_of(x):
     return np.asarray(z), np.asarray(deuler)
 
 
-@functools.lru_cache(maxsize=None)
-def jax_side():
+def _jax_side():
     """One jitted, vmapped JAX program over the samples: ComKino's flow map
     with a wrench argument (zeros for none), mass matrix, base acceleration and
-    contact force, and the full centroidal model's terms."""
+    contact force, and the full centroidal model's terms (stored in
+    ``tests/torch_data/test_torch_comkino_jax.npz`` by
+    ``tools/torch_test_records.py --record test_torch_comkino``: XLA takes
+    most of a minute to compile it)."""
 
     def one(x, u, f_ext, tau_ext):
         z, _, deuler = jcomkino._state_to_z(x)
@@ -115,7 +121,20 @@ def jax_side():
         f = np.zeros(3, np.float32) if f is None else f
         tau = np.zeros(3, np.float32) if tau is None else tau
         out[name] = jax.tree.map(np.asarray, fn(x, u, f, tau))
-    return out
+    return dict(samples=dict(x=x, u=u), out=out)
+
+
+JAX_RECORDS = {"jax_side": _jax_side}
+RECORDS = Records(__file__)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_side():
+    rec = RECORDS["jax_side"]
+    x, u = samples()
+    np.testing.assert_array_equal(rec["samples"]["x"], x)  # the record's inputs
+    np.testing.assert_array_equal(rec["samples"]["u"], u)
+    return rec["out"]
 
 
 # -- constants and mass model ---------------------------------------------------------

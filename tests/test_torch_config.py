@@ -19,6 +19,9 @@ from ocs2_tpu_torch.mpc import mpc
 from ocs2_tpu_torch.solvers import ddp, sqp
 from ocs2_tpu_torch.utils import config
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 INFO = """
 ; task file in the reference .info grammar
 mpc

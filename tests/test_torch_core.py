@@ -19,6 +19,9 @@ from ocs2_tpu_torch import convert
 from ocs2_tpu_torch.core import integrate, interpolation, penalties, reference, types
 from ocs2_tpu_torch.oc import time_discretization as td
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 ATOL = 1e-6
 T = lambda v: torch.as_tensor(np.asarray(v, np.float32))  # noqa: E731
 

@@ -3,7 +3,10 @@
 Both sides get the same numpy-seeded initial states.  At B=8 the JAX side
 takes vmap(_lqr_backward_single) on the CPU and the port the entry-form plain
 version of its kernel: the difference is float32 reassociation, hence the
-1e-3 control-trajectory tolerance and not bit equality.
+1e-3 control-trajectory tolerance and not bit equality.  The JAX package's
+solve (``JAX_RECORDS``) is stored in
+``tests/torch_data/test_torch_ddp_ballbot_jax.npz`` by
+``tools/torch_test_records.py --record test_torch_ddp_ballbot``.
 """
 import jax
 import jax.numpy as jnp
@@ -18,6 +21,10 @@ from ocs2_tpu.solvers import ddp as jddp
 from ocs2_tpu_torch.models import ballbot
 from ocs2_tpu_torch.oc.time_discretization import uniform_grid
 from ocs2_tpu_torch.solvers import ddp
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 B, N, MAX_IT = 8, 16, 8
 # Seed fixed: the comparison holds iteration counts equal, and a line-search
@@ -30,8 +37,7 @@ def _x0s(batch=B, seed=SEED):
     return (0.1 * rng.standard_normal((batch, ballbot.NX))).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def jax_solution():
+def _jax_solve():
     problem = jballbot.make_problem()
     grid = juniform_grid(0.0, 1.0, N)
     params = jballbot.make_params()
@@ -40,7 +46,18 @@ def jax_solution():
         lambda x, p: jddp.solve(problem, grid, x, p, settings=st),
         in_axes=(0, None),
     ))
-    return jax.tree.map(np.asarray, solve(jnp.asarray(_x0s()), params))
+    return dict(x0=_x0s(), sol=solve(jnp.asarray(_x0s()), params))
+
+
+JAX_RECORDS = {"ilqr_b8": _jax_solve}
+RECORDS = Records(__file__)
+
+
+@pytest.fixture(scope="module")
+def jax_solution():
+    rec = RECORDS["ilqr_b8"]
+    np.testing.assert_array_equal(rec["x0"], _x0s())  # the record solved these starts
+    return rec["sol"]
 
 
 def _torch_solve(x0s, **kw):

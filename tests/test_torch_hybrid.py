@@ -39,6 +39,9 @@ from ocs2_tpu_torch.ops import care
 from ocs2_tpu_torch.solvers import ddp, sqp, switch_time
 from ocs2_tpu_torch.solvers.hybrid_ddp import _detect_events, solve_state_triggered
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 T = lambda v: torch.as_tensor(np.asarray(v, np.float32))  # noqa: E731
 G = 9.81
 

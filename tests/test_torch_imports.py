@@ -281,3 +281,51 @@ def test_loopshaping_entry_points_default_to_the_card():
     ]
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+LEARNING_MODULES = ["learning/loss.py", "learning/memory.py", "learning/policy.py",
+                    "learning/export.py", "learning/mpcnet.py", "learning/robots.py"]
+
+
+@pytest.mark.parametrize("module", LEARNING_MODULES)
+def test_learning_modules_are_present_and_imported(fresh_import, module):
+    """MPC-Net's six modules exist and are among the modules the fresh
+    interpreter imported without JAX or the JAX package."""
+    proc, _ = fresh_import
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names = proc.stdout.split("MODULES", 1)[1].split()
+    assert (PKG / module).exists()
+    assert "ocs2_tpu_torch." + module[:-3].replace("/", ".") in names
+
+
+@pytest.mark.parametrize("module", LEARNING_MODULES)
+def test_learning_modules_name_no_flax_or_optax(module):
+    """The JAX package's MPC-Net is flax and optax; the port's imports
+    neither (nor JAX, nor the JAX package)."""
+    tree = ast.parse((PKG / module).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for mod in mods:
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "ocs2_tpu", "flax", "optax"), (
+                f"{module}: import of {mod}")
+
+
+def test_learning_entry_points_default_to_the_card():
+    import inspect
+
+    from ocs2_tpu_torch import convert
+    from ocs2_tpu_torch.learning import memory, mpcnet, policy, robots
+
+    fns = [
+        memory.CircularMemory.create, policy.dense, policy.LinearPolicy,
+        policy.NonlinearPolicy, policy.MixtureOfNonlinearExpertsPolicy,
+        policy.MixtureOfLinearExpertsPolicy, mpcnet.Mpcnet, robots.make_ballbot_mpcnet,
+        robots.make_legged_mpcnet, convert.mpcnet_sample_from_numpy,
+    ]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn

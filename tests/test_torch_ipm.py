@@ -19,6 +19,11 @@ reassociation).  Iterations and convergence equal, ``xs`` / ``us`` within
 1e-3 + 1e-4 |value| (standing contact forces at 5e-3, as in
 ``tests/test_torch_sqp.py``), slacks, duals, mu, the performance index, the
 gains and the AL state within the tolerances stated at each test.
+
+The JAX package's solves and its closed loop (``JAX_RECORDS``) are stored in
+``tests/torch_data/test_torch_ipm_jax.npz`` by
+``tools/torch_test_records.py --record test_torch_ipm``, with the starts
+they solved from; the port runs live.
 """
 import dataclasses
 import functools
@@ -46,6 +51,10 @@ from ocs2_tpu_torch.mpc.mpc import Mpc, MpcSettings
 from ocs2_tpu_torch.mpc.mrt import MpcMrtInterface, dummy_loop
 from ocs2_tpu_torch.oc.time_discretization import make_time_grid, uniform_grid
 from ocs2_tpu_torch.solvers import ipm
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 SOLVE_ATOL, SOLVE_RTOL = 1e-3, 1e-4
 FORCE_ATOL = 5e-3
@@ -91,13 +100,17 @@ def _jax_di_solve(kind, batch):
     return jax.jit(one if batch == 1 else jax.vmap(one))
 
 
+def _jax_di_case(kind, batch):
+    x0 = np.asarray(DI_X0[kind], np.float32)[:batch]
+    return dict(x0=x0, sol=_jax_di_solve(kind, batch)(jnp.asarray(x0[0] if batch == 1 else x0)))
+
+
 def _di_case(kind, batch):
     x0 = np.asarray(DI_X0[kind], np.float32)[:batch]
-    ref = _jax_di_solve(kind, batch)(jnp.asarray(x0[0] if batch == 1 else x0))
     mine = ipm.solve(
         torch_di_problem(kind), uniform_grid(0.0, 2.0, DI_N), x0[0] if batch == 1 else x0,
         di.make_params(device="cpu"), settings=ipm.IpmSettings(**DI_SETTINGS), device="cpu")
-    return mine, ref
+    return mine, x0
 
 
 def _legged_grids(kind):
@@ -128,27 +141,40 @@ def _legged_inputs(batch):
     return x0s.astype(np.float32)[:batch], np.tile(u0[None], (LEGGED_N, 1)).astype(np.float32)
 
 
-def _legged_solve_pair(kind, x0, us):
-    jgrid, tgrid = _legged_grids(kind)
+def _jax_legged_solve_of(kind, x0, us):
+    jgrid, _ = _legged_grids(kind)
     batch = 1 if x0.ndim == 1 else x0.shape[0]
-    ref = _jax_legged_solve(batch)(jnp.asarray(x0), jnp.asarray(us), jgrid,
-                                   jinterface.make_params(jgrid))
+    return dict(x0=x0, sol=_jax_legged_solve(batch)(jnp.asarray(x0), jnp.asarray(us), jgrid,
+                                                     jinterface.make_params(jgrid)))
+
+
+def _legged_solve(kind, x0, us):
+    _, tgrid = _legged_grids(kind)
     mine = ipm.solve(
         interface.make_problem(friction_cone="hard", device="cpu"), tgrid, x0,
         interface.make_params(tgrid, device="cpu"), us_init=torch.as_tensor(us),
         settings=ipm.IpmSettings(**LEGGED_SETTINGS), device="cpu")
-    return mine, ref
+    return mine, x0
+
+
+def _legged_start(batch):
+    x0s, us = _legged_inputs(batch)
+    return x0s[0] if batch == 1 else x0s, us
+
+
+def _jax_legged_case(kind, batch):
+    return _jax_legged_solve_of(kind, *_legged_start(batch))
 
 
 def _legged_case(kind, batch):
-    x0s, us = _legged_inputs(batch)
-    return _legged_solve_pair(kind, x0s[0] if batch == 1 else x0s, us)
+    return _legged_solve(kind, *_legged_start(batch))
 
 
 CASES = {
-    f"{prefix}_{kind}_b{batch}": (fn, kind, batch)
-    for prefix, fn, kinds in (("di", _di_case, ("bounds", "ceiling", "both")),
-                              ("legged", _legged_case, ("standing", "trot")))
+    f"{prefix}_{kind}_b{batch}": (fn, jax_fn, kind, batch)
+    for prefix, fn, jax_fn, kinds in (
+        ("di", _di_case, _jax_di_case, ("bounds", "ceiling", "both")),
+        ("legged", _legged_case, _jax_legged_case, ("standing", "trot")))
     for kind in kinds
     for batch in (1, 3)
 }
@@ -160,11 +186,17 @@ def _as_batch(ref, batch):
     return jax.tree.map(lambda a: a[None], ref) if batch == 1 else ref
 
 
+def _recorded(name, x0):
+    rec = RECORDS[name]
+    np.testing.assert_array_equal(rec["x0"], x0)  # the record solved this start
+    return rec["sol"]
+
+
 @functools.lru_cache(maxsize=None)
 def _run(name):
-    fn, kind, batch = CASES[name]
-    mine, ref = fn(kind, batch)
-    return name, batch, mine, _as_batch(ref, batch)
+    fn, _, kind, batch = CASES[name]
+    mine, x0 = fn(kind, batch)
+    return name, batch, mine, _as_batch(_recorded(name, x0), batch)
 
 
 @pytest.fixture(scope="module", params=list(CASES))
@@ -300,15 +332,18 @@ def test_legged_solution_holds_the_foot_constraint_and_cone(name):
 # -- the reference's zero-input fault (ROADMAP.md §3) --------------------------
 
 
+def _zero_start_inputs():
+    return np.array(jmodel.default_state(), np.float32), np.zeros((LEGGED_N, 24), np.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def _zero_start():
     """The legged trot from the default state and zero inputs (the JAX
     package's Mpc cold start): zero contact forces put every stance slack at
     its floor, and the jump nodes' reduced Hessians become rank-deficient up
     to the 1e-6 regularization."""
-    x0 = np.array(jmodel.default_state(), np.float32)
-    mine, ref = _legged_solve_pair("trot", x0, np.zeros((LEGGED_N, 24), np.float32))
-    return mine, _as_batch(ref, 1)
+    mine, x0 = _legged_solve("trot", *_zero_start_inputs())
+    return mine, _as_batch(_recorded("legged_trot_zero_start", x0), 1)
 
 
 def test_zero_input_stall_matches_the_reference():
@@ -409,21 +444,36 @@ def test_zero_width_families_take_no_part():
     np.testing.assert_allclose(ipm._ftb_alpha(s, ds, 0.995).numpy(), [1.0, 0.0995], rtol=1e-6)
 
 
+MPC_LOOP = dict(settings=dict(time_horizon=1.0, num_intervals=DI_N, solver="ipm"),
+                x0=(2.0, 0.0), loop=dict(duration=1.0, mrt_frequency=100.0, mpc_frequency=20.0))
+
+
+def _jax_mpc_closed_loop():
+    ref_mpc = jmpc.Mpc(jax_di_problem("bounds"), jdi.make_params(),
+                       settings=jmpc.MpcSettings(**MPC_LOOP["settings"]))
+    return jmrt.dummy_loop(jmrt.MpcMrtInterface(ref_mpc),
+                           jnp.asarray(MPC_LOOP["x0"], jnp.float32), **MPC_LOOP["loop"])
+
+
+JAX_RECORDS = dict(
+    {name: functools.partial(jax_fn, kind, batch)
+     for name, (_, jax_fn, kind, batch) in CASES.items()},
+    legged_trot_zero_start=lambda: _jax_legged_solve_of("trot", *_zero_start_inputs()),
+    mpc_closed_loop=_jax_mpc_closed_loop,
+)
+RECORDS = Records(__file__)
+
+
 def test_mpc_ipm_closed_loop_matches_the_reference():
     """``Mpc(solver="ipm")`` in ``dummy_loop`` against the JAX package's, on
     the bounded double integrator: 1 s at 100 Hz control and 20 Hz MPC, the
     box active over the first ticks."""
-    st = dict(time_horizon=1.0, num_intervals=DI_N, solver="ipm")
-    ref_mpc = jmpc.Mpc(jax_di_problem("bounds"), jdi.make_params(),
-                       settings=jmpc.MpcSettings(**st))
     mine_mpc = Mpc(torch_di_problem("bounds"), di.make_params(device="cpu"),
-                   settings=MpcSettings(**st), device="cpu")
+                   settings=MpcSettings(**MPC_LOOP["settings"]), device="cpu")
     assert isinstance(mine_mpc.solver_settings, ipm.IpmSettings)
-    x0 = np.array([2.0, 0.0], np.float32)
-    kw = dict(duration=1.0, mrt_frequency=100.0, mpc_frequency=20.0)
-    ts_r, xs_r, us_r = (np.asarray(a) for a in jmrt.dummy_loop(
-        jmrt.MpcMrtInterface(ref_mpc), jnp.asarray(x0), **kw))
-    ts, xs, us = dummy_loop(MpcMrtInterface(mine_mpc), torch.as_tensor(x0), **kw)
+    x0 = np.array(MPC_LOOP["x0"], np.float32)
+    ts_r, xs_r, us_r = RECORDS["mpc_closed_loop"]
+    ts, xs, us = dummy_loop(MpcMrtInterface(mine_mpc), torch.as_tensor(x0), **MPC_LOOP["loop"])
     assert xs.shape == xs_r.shape == (101, 2) and mine_mpc.solve_timer.count == 20
     np.testing.assert_allclose(xs.numpy(), xs_r, atol=SOLVE_ATOL, rtol=SOLVE_RTOL)
     np.testing.assert_allclose(us.numpy(), us_r, atol=SOLVE_ATOL, rtol=SOLVE_RTOL)

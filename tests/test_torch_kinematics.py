@@ -23,6 +23,9 @@ from ocs2_tpu_torch import convert
 from ocs2_tpu_torch.models import kinematics as kin
 from ocs2_tpu_torch.models import mobile_manipulator as mm
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 ATOL, JAC_ATOL = 2e-6, 1e-5
 T = lambda v: torch.as_tensor(np.asarray(v, np.float32))  # noqa: E731
 

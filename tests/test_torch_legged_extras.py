@@ -42,6 +42,9 @@ from ocs2_tpu_torch.models.legged_robot import ik, model, motions
 from ocs2_tpu_torch.models.legged_robot.terrain import ElevationMap
 from ocs2_tpu_torch.mpc.mpc import ReferenceManager
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 IK_TOL = 1e-5
 MOTION_TOL = 1e-6
 PLANT_RTOL = 1e-5

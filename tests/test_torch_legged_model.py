@@ -1,7 +1,13 @@
 """The legged-robot model of the port vs the JAX package on the CPU:
 kinematics, SRBD dynamics, constraints, gait and swing planning, the params
 dict, and the LQ approximation of the assembled problem on a trot grid
-(projected and unprojected).  Values rtol 2e-4 / atol 1e-5, float32."""
+(projected and unprojected).  Values rtol 2e-4 / atol 1e-5, float32.
+
+The JAX package's LQ approximation and trajectory metrics (``JAX_RECORDS``)
+are stored in ``tests/torch_data/test_torch_legged_model_jax.npz`` by
+``tools/torch_test_records.py --record test_torch_legged_model``."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +30,10 @@ from ocs2_tpu_torch.models.legged_robot import gait, interface, model, swing
 from ocs2_tpu_torch.oc import approx, metrics
 from ocs2_tpu_torch.oc.time_discretization import make_time_grid
 from ocs2_tpu_torch.solvers import al
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 RTOL, ATOL = 2e-4, 1e-5
 T = lambda v: torch.as_tensor(np.asarray(v, np.float32))  # noqa: E731
@@ -299,12 +309,9 @@ def _trajectory(batch, n, seed):
     return x.reshape(batch, n + 1, 24), u.reshape(batch, n + 1, 24)[:, :n]
 
 
-@pytest.fixture(scope="module")
-def legged_lq():
-    """Projected flagship problem (soft cone, foot constraint kept as an
-    equality for the projection) on the trot grid, rk2, B = 2."""
+def _jax_legged_lq():
     n = 20
-    jg, tg = grids(n)
+    jg, _ = grids(n)
     xs, us = _trajectory(2, n, seed=6)
     jp = jinterface.make_problem()
     jaug = jal.augment_problem(jp, project_equalities=True)
@@ -313,6 +320,35 @@ def legged_lq():
     jalst = jal.AlState.init(jdims, n, 10.0)
     ref = jax.jit(jax.vmap(lambda x, u: japprox.approximate_lq(
         jaug, jg, x, u, dict(jparams, al=jalst), method="rk2")))(jnp.asarray(xs), jnp.asarray(us))
+    return dict(lq=ref, dims=jdims)
+
+
+def _jax_trajectory_metrics(friction, project):
+    n = 20
+    jg, _ = grids(n)
+    xs, us = _trajectory(2, n, seed=8)
+    jp = jinterface.make_problem(friction_cone=friction, project_foot_constraint=project)
+    return jax.jit(jax.vmap(lambda x, u: jmetrics.evaluate_trajectory(
+        jp, jg, x, u, jinterface.make_params(jg))))(jnp.asarray(xs), jnp.asarray(us))
+
+
+METRICS_CASES = [("hard", False), ("soft", False)]
+JAX_RECORDS = dict(
+    {f"metrics_{f}_{p}": functools.partial(_jax_trajectory_metrics, f, p)
+     for f, p in METRICS_CASES},
+    legged_lq=_jax_legged_lq)
+RECORDS = Records(__file__)
+
+
+@pytest.fixture(scope="module")
+def legged_lq():
+    """Projected flagship problem (soft cone, foot constraint kept as an
+    equality for the projection) on the trot grid, rk2, B = 2."""
+    n = 20
+    _, tg = grids(n)
+    xs, us = _trajectory(2, n, seed=6)
+    rec = RECORDS["legged_lq"]
+    ref, jdims = rec["lq"], {k: int(v) for k, v in rec["dims"].items()}
     tp = interface.make_problem(device="cpu")
     taug = al.augment_problem(tp, project_equalities=True)
     tparams = interface.make_params(tg, device="cpu")
@@ -345,18 +381,16 @@ def test_legged_eq_jacobian_has_full_row_rank(legged_lq):
     assert s.shape == (2, 20, 12) and s.min() > 1e-2
 
 
-@pytest.mark.parametrize("friction, project", [("hard", False), ("soft", False)])
+@pytest.mark.parametrize("friction, project", METRICS_CASES)
 def test_legged_trajectory_metrics_match_jax(friction, project):
     """evaluate_trajectory on the unprojected / hard-cone assemblies: cost
     and the raw constraint values of every family."""
     n = 20
-    jg, tg = grids(n)
+    _, tg = grids(n)
     xs, us = _trajectory(2, n, seed=8)
-    jp = jinterface.make_problem(friction_cone=friction, project_foot_constraint=project)
     tp = interface.make_problem(friction_cone=friction, project_foot_constraint=project,
                                 device="cpu")
-    ref = jax.jit(jax.vmap(lambda x, u: jmetrics.evaluate_trajectory(
-        jp, jg, x, u, jinterface.make_params(jg))))(jnp.asarray(xs), jnp.asarray(us))
+    ref = RECORDS[f"metrics_{friction}_{project}"]
     mine = metrics.evaluate_trajectory(tp, tg, T(xs), T(us), interface.make_params(tg, device="cpu"))
     close(mine.cost, ref.cost)
     close(mine.g_eq, ref.g_eq)

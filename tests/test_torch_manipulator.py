@@ -44,6 +44,10 @@ from ocs2_tpu_torch.oc import approx
 from ocs2_tpu_torch.oc.time_discretization import uniform_grid
 from ocs2_tpu_torch.ops import riccati
 from ocs2_tpu_torch.solvers import sqp
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 ATOL, GRAD_ATOL = 2e-6, 1e-5
 T = lambda v: torch.as_tensor(np.array(v, np.float32))  # noqa: E731
@@ -128,17 +132,28 @@ def _sdf_pair():
             jsdf(jnp.asarray(occ), [0.0, -0.6, 0.0], 0.05))
 
 
-def _lq_pair(p, jp, r_target, seed, n=4, b=2):
-    """The LQ data (rk2) of one problem at B = 2, N = 4 from random
-    trajectories, in both packages (the JAX side jitted)."""
+def _lq_inputs(nx, nu, seed, n=4, b=2):
     rng = np.random.default_rng(seed)
-    xs = rng.uniform(-0.8, 0.8, (b, n + 1, p.nx)).astype(np.float32)
-    us = rng.standard_normal((b, n, p.nu)).astype(np.float32)
-    par = mm.make_params((0.8, 0.3, 0.7), r_target, device="cpu")
+    xs = rng.uniform(-0.8, 0.8, (b, n + 1, nx)).astype(np.float32)
+    us = rng.standard_normal((b, n, nu)).astype(np.float32)
+    return n, xs, us
+
+
+def _jax_lq(jp, r_target, seed):
+    """The JAX package's LQ data (rk2, jitted) of one problem at B = 2,
+    N = 4 from random trajectories."""
+    n, xs, us = _lq_inputs(jp.nx, jp.nu, seed)
     jpar = jmm.make_params((0.8, 0.3, 0.7), r_target)
-    ref = jax.jit(jax.vmap(lambda x, u: japprox.approximate_lq(
+    return jax.jit(jax.vmap(lambda x, u: japprox.approximate_lq(
         jp, juniform_grid(0.0, 1.0, n), x, u, jpar, method="rk2")))(
             jnp.asarray(xs), jnp.asarray(us))
+
+
+def _lq_pair(p, ref, r_target, seed):
+    """The port's LQ data on the inputs of ``_jax_lq`` beside the stored
+    JAX result."""
+    n, xs, us = _lq_inputs(p.nx, p.nu, seed)
+    par = mm.make_params((0.8, 0.3, 0.7), r_target, device="cpu")
     mine = approx.approximate_lq(p, uniform_grid(0.0, 1.0, n), T(xs), T(us), par, method="rk2")
     return _flat(mine), _flat(ref)
 
@@ -163,7 +178,7 @@ def lq_data():
     Gauss-Newton blocks, and the flow's Jacobians."""
     p, jp = mm.make_problem("soft"), jmm.make_problem("soft")
     assert p.cost_structure_psd is jp.cost_structure_psd is False
-    return _lq_pair(p, jp, R_DOWN, seed=4)
+    return _lq_pair(p, RECORDS["soft_lq"], R_DOWN, seed=4)
 
 
 def test_lq_data_matches_jax(lq_data):
@@ -223,13 +238,25 @@ def _short_grid(mod):
     return mod(0.0, SHORT["horizon"], SHORT["n"])
 
 
+def _jax_short_solve():
+    return jax.jit(lambda x: jsqp.solve(
+        jmm.make_problem("soft"), _short_grid(juniform_grid), x,
+        jmm.make_params(cs.MANIP_TARGETS["reach"]),
+        settings=jsqp.SqpSettings(**SHORT["settings"])))(jmm.home_state())
+
+
+JAX_RECORDS = {
+    "soft_lq": lambda: _jax_lq(jmm.make_problem("soft"), R_DOWN, seed=4),
+    "short_solve": _jax_short_solve,
+}
+RECORDS = Records(__file__)
+
+
 def test_short_solve_matches_jax():
     """The soft problem with self-collision from home to the reach target,
-    N = 10, 10 iterations, live in both packages."""
+    N = 10, 10 iterations: the port live, the JAX package's solve stored."""
     target = cs.MANIP_TARGETS["reach"]
-    ref = jax.jit(lambda x: jsqp.solve(
-        jmm.make_problem("soft"), _short_grid(juniform_grid), x, jmm.make_params(target),
-        settings=jsqp.SqpSettings(**SHORT["settings"])))(jmm.home_state())
+    ref = RECORDS["short_solve"]
     mine = sqp.solve(mm.make_problem("soft"), _short_grid(uniform_grid), mm.home_state("cpu"),
                      mm.make_params(target, device="cpu"),
                      settings=sqp.SqpSettings(**SHORT["settings"]), device="cpu")

@@ -13,9 +13,12 @@
 
 Inputs come from a numpy seed; solves with equal iteration counts agree
 within 1e-3 + 1e-4 |value| (contact forces at 5e-3), pure functions within
-rtol 2e-4 / atol 1e-5.
+rtol 2e-4 / atol 1e-5.  The JAX package's three legged ticks (``JAX_RECORDS``)
+are stored in ``tests/torch_data/test_torch_mpc_jax.npz`` by
+``tools/torch_test_records.py --record test_torch_mpc``.
 """
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +51,10 @@ from ocs2_tpu_torch.mpc.mrt import (
 )
 from ocs2_tpu_torch.oc.time_discretization import make_time_grid
 from ocs2_tpu_torch.solvers import ddp, sqp
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 RTOL, ATOL = 2e-4, 1e-5
 SOLVE_ATOL, SOLVE_RTOL = 1e-3, 1e-4
@@ -324,20 +331,34 @@ def _legged_reference_pair():
     return mine, ref
 
 
-@functools.lru_cache(maxsize=None)
-def _legged_ticks():
-    """Both packages from the default state; every next tick starts at the
-    JAX solution's xs[1] in both."""
-    mine, ref = _legged_reference_pair()
+def _jax_legged_ticks():
+    """The JAX package's ticks from the default state, each next tick from
+    its solution's xs[1]: the start, the policy and the carried AL state."""
+    _, ref = _legged_reference_pair()
     x = np.array(jmodel.default_state())
     ticks = []
     for t in LEGGED_TICKS:
         pr = ref.run(t, jnp.asarray(x))
-        pm = mine.run(t, torch.as_tensor(x))
-        ticks.append(dict(
-            mine=pm, ref=pr, spread=mine.spread_count, solution=mine.last_solution,
-            inputs=mine.last_solve_inputs, ref_al=jax.tree.map(np.asarray, ref._prev_al)))
+        ticks.append(dict(x=x, policy=vars(pr), al=ref._prev_al))
         x = np.array(pr.xs[1])
+    return ticks
+
+
+JAX_RECORDS = {"legged_ticks": _jax_legged_ticks}
+RECORDS = Records(__file__)
+
+
+@functools.lru_cache(maxsize=None)
+def _legged_ticks():
+    """The port's ticks from the JAX package's starts (the default state,
+    then each JAX tick's xs[1])."""
+    mine, _ = _legged_reference_pair()
+    ticks = []
+    for t, rec in zip(LEGGED_TICKS, RECORDS["legged_ticks"]):
+        pm = mine.run(t, torch.as_tensor(rec["x"]))
+        ticks.append(dict(
+            mine=pm, ref=SimpleNamespace(**rec["policy"]), spread=mine.spread_count, solution=mine.last_solution,
+            inputs=mine.last_solve_inputs, ref_al=rec["al"]))
     return ticks, mine
 
 

@@ -43,6 +43,9 @@ from ocs2_tpu_torch.utils.recorder import (
     pose_command_to_target,
 )
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 T = lambda v: torch.as_tensor(np.array(v, np.float32))  # noqa: E731
 
 

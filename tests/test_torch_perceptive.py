@@ -22,6 +22,9 @@ from ocs2_tpu_torch import convert
 from ocs2_tpu_torch.models import perceptive
 from ocs2_tpu_torch.ops import smallmat
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 RTOL, ATOL = 1e-4, 1e-5
 GRID_SHAPE = (12, 12, 8)
 

@@ -42,6 +42,10 @@ from ocs2_tpu_torch.oc.time_discretization import uniform_grid
 from ocs2_tpu_torch.ops import pipg
 from ocs2_tpu_torch.ops.riccati import LqrCoeffs, lqr_backward, lqr_forward
 from ocs2_tpu_torch.solvers import al, qp, slp, sqp
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 RTOL, ATOL = 2e-4, 1e-5
 SOLVE_ATOL, SOLVE_RTOL = 1e-3, 1e-4
@@ -186,22 +190,28 @@ PIPG_SETTINGS = dict(max_iterations=10, pipg_iterations=2000)
 DI_X0 = np.array([[1.0, 0.0], [0.5, -0.5], [-0.8, 0.3]], np.float32)
 
 
-@functools.lru_cache(maxsize=None)
-def _di_solves(solver, batch):
-    settings, jsettings, solve, jsolve = {
-        "sqp_pipg": (sqp.SqpSettings(qp_solver="pipg", **PIPG_SETTINGS),
-                     jsqp.SqpSettings(qp_solver="pipg", **PIPG_SETTINGS), sqp.solve, jsqp.solve),
-        "slp": (slp.SlpSettings(**PIPG_SETTINGS), jslp.SlpSettings(**PIPG_SETTINGS),
-                slp.solve, jslp.solve),
+def _jax_di_solve(solver, batch):
+    jsettings, jsolve = {
+        "sqp_pipg": (jsqp.SqpSettings(qp_solver="pipg", **PIPG_SETTINGS), jsqp.solve),
+        "slp": (jslp.SlpSettings(**PIPG_SETTINGS), jslp.solve),
     }[solver]
     one = lambda x: jsolve(  # noqa: E731
         jdi.make_problem(), juniform_grid(0.0, 2.0, DI_N), x, jdi.make_params(),
         settings=jsettings)
     x0 = DI_X0[:batch]
-    ref = jax.jit(one if batch == 1 else jax.vmap(one))(jnp.asarray(x0[0] if batch == 1 else x0))
-    ref = jax.tree.map(np.asarray, ref)
+    return jax.jit(one if batch == 1 else jax.vmap(one))(jnp.asarray(x0[0] if batch == 1 else x0))
+
+
+@functools.lru_cache(maxsize=None)
+def _di_solves(solver, batch):
+    settings, solve = {
+        "sqp_pipg": (sqp.SqpSettings(qp_solver="pipg", **PIPG_SETTINGS), sqp.solve),
+        "slp": (slp.SlpSettings(**PIPG_SETTINGS), slp.solve),
+    }[solver]
+    ref = RECORDS[f"di_{solver}_b{batch}"]
     if batch == 1:
         ref = jax.tree.map(lambda a: a[None], ref)
+    x0 = DI_X0[:batch]
     mine = solve(di.make_problem(device="cpu"), uniform_grid(0.0, 2.0, DI_N),
                  x0[0] if batch == 1 else x0, di.make_params(device="cpu"), settings=settings,
                  device="cpu")
@@ -209,6 +219,21 @@ def _di_solves(solver, batch):
 
 
 PIPG_CASES = [(s, b) for s in ("sqp_pipg", "slp") for b in (1, 3)]
+PROJECTED_TOY = dict(settings=dict(max_iterations=2, qp_solver="pipg", pipg_iterations=500),
+                     x0=(0.3, -0.2))
+
+
+def _jax_projected_toy():
+    return jax.jit(lambda x: jsqp.solve(
+        toy.jax_problem(2), juniform_grid(0.0, 1.0, 8), x, toy.jax_params(2),
+        settings=jsqp.SqpSettings(**PROJECTED_TOY["settings"])))(
+            jnp.asarray(PROJECTED_TOY["x0"], jnp.float32))
+
+
+JAX_RECORDS = dict(
+    {f"di_{s}_b{b}": functools.partial(_jax_di_solve, s, b) for s, b in PIPG_CASES},
+    projected_toy=_jax_projected_toy)
+RECORDS = Records(__file__)
 
 
 @pytest.mark.parametrize("solver,batch", PIPG_CASES)
@@ -286,11 +311,9 @@ def test_slp_settings_are_the_reference_s():
 def test_sqp_pipg_on_the_projected_toy_remaps_zero_gains():
     """With a projected equality the returned gains are the projection's
     state feedback (Px + Pu 0), as in the JAX package."""
-    st = dict(max_iterations=2, qp_solver="pipg", pipg_iterations=500)
-    x0 = np.array([0.3, -0.2], np.float32)
-    ref = jax.jit(lambda x: jsqp.solve(
-        toy.jax_problem(2), juniform_grid(0.0, 1.0, 8), x, toy.jax_params(2),
-        settings=jsqp.SqpSettings(**st)))(jnp.asarray(x0))
+    st = PROJECTED_TOY["settings"]
+    x0 = np.array(PROJECTED_TOY["x0"], np.float32)
+    ref = RECORDS["projected_toy"]
     mine = sqp.solve(toy.torch_problem(2), uniform_grid(0.0, 1.0, 8), x0, toy.torch_params(2),
                      settings=sqp.SqpSettings(**st), device="cpu")
     assert int(mine.iterations[0]) == int(ref.iterations)

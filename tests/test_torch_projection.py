@@ -17,6 +17,9 @@ from ocs2_tpu_torch import convert
 from ocs2_tpu_torch.ops import projection, riccati
 from test_torch_riccati import both, lq_numpy
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 TOL = 1e-4
 B, N, NX, NU, NE = 3, 6, 8, 6, 3
 # The flagship's sizes: 12 rows on 24 inputs.

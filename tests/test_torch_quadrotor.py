@@ -24,6 +24,9 @@ from ocs2_tpu_torch.oc.approx import approximate_lq
 from ocs2_tpu_torch.oc.time_discretization import uniform_grid
 from ocs2_tpu_torch.solvers import sqp
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 RTOL, ATOL = 2e-4, 1e-5
 SOLVE_ATOL, SOLVE_RTOL = 1e-3, 1e-4
 B, N, HORIZON = 8, 10, 2.0

@@ -30,6 +30,9 @@ from ocs2_tpu.ops.riccati_pallas import lqr_backward_pallas
 from ocs2_tpu_torch import convert
 from ocs2_tpu_torch.ops import riccati, riccati_cuda
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 # float32 reassociation: the order of the k-accumulation differs.
 RTOL, ATOL = 2e-4, 1e-5
 FIELDS = riccati.LqrSolution._fields

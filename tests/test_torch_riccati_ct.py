@@ -40,6 +40,9 @@ from ocs2_tpu_torch.oc.time_discretization import uniform_grid
 from ocs2_tpu_torch.ops import riccati_ct, riccati_ct_cuda
 from test_torch_slq import exp0_grid, exp0_params, exp0_problem, jexp0
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 RTOL, ATOL = 2e-4, 1e-5
 HOST_RTOL, HOST_ATOL = 1e-5, 1e-6
 LQ_RTOL, LQ_ATOL = 1e-5, 1e-6

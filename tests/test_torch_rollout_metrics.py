@@ -1,6 +1,9 @@
 """Rollout, trajectory metrics and augmented-Lagrangian bookkeeping of the
 port vs the JAX package on the CPU (ballbot and the constrained toy problem),
-atol 1e-5 in float32 unless a case says otherwise."""
+atol 1e-5 in float32 unless a case says otherwise.  The JAX package's AL-DDP
+solve of the toy (``JAX_RECORDS``) is stored in
+``tests/torch_data/test_torch_rollout_metrics_jax.npz`` by
+``tools/torch_test_records.py --record test_torch_rollout_metrics``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,10 @@ from ocs2_tpu_torch.models import ballbot
 from ocs2_tpu_torch.oc import approx, metrics, rollout
 from ocs2_tpu_torch.oc.time_discretization import uniform_grid
 from ocs2_tpu_torch.solvers import al, ddp
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 ATOL = 1e-5
 T = lambda v: torch.as_tensor(np.asarray(v, np.float32))  # noqa: E731
@@ -182,16 +189,26 @@ def test_augmented_cost_value_matches_jax():
     np.testing.assert_allclose(mine.numpy(), np.asarray(ref), rtol=1e-5, atol=ATOL)
 
 
+TOY_DDP = dict(n=10, x0=np.float32([[0.4, 0.0], [-0.3, 0.2]]),
+               settings=dict(algorithm="ilqr", max_iterations=6, convexify=False))
+
+
+def _jax_toy_ddp():
+    return jax.jit(jax.vmap(lambda x: jddp.solve(
+        toy.jax_problem(), juniform_grid(0.0, 1.0, TOY_DDP["n"]), x, toy.jax_params(),
+        settings=jddp.DdpSettings(**TOY_DDP["settings"]))))(jnp.asarray(TOY_DDP["x0"]))
+
+
+JAX_RECORDS = {"toy_ddp": _jax_toy_ddp}
+RECORDS = Records(__file__)
+
+
 def test_constrained_toy_ddp_matches_jax():
     """A short AL-DDP solve of the constrained toy problem: the generic
     augmented-Lagrangian path of the solver (dual ascent, penalty growth,
     Gauss-Newton terms) follows the JAX solve."""
-    b, n, max_it = 2, 10, 6
-    x0 = np.float32([[0.4, 0.0], [-0.3, 0.2]])
-    st = dict(algorithm="ilqr", max_iterations=max_it, convexify=False)
-    ref = jax.jit(jax.vmap(lambda x: jddp.solve(
-        toy.jax_problem(), juniform_grid(0.0, 1.0, n), x, toy.jax_params(),
-        settings=jddp.DdpSettings(**st))))(jnp.asarray(x0))
+    n, x0, st = TOY_DDP["n"], TOY_DDP["x0"], TOY_DDP["settings"]
+    ref = RECORDS["toy_ddp"]
     mine = ddp.solve(
         toy.torch_problem(), uniform_grid(0.0, 1.0, n), x0, toy.torch_params(),
         settings=ddp.DdpSettings(**st), device="cpu")

@@ -12,6 +12,12 @@ atol 1e-5; LQ coefficients and trajectory metrics rtol 1e-4 / atol 1e-5
 times the leaf's largest entry (as in ``test_torch_legged_model.py``);
 solves with equal iteration counts, ``xs`` / ``us`` within
 1e-3 + 1e-4 |value|.
+
+The JAX package's LQ approximation, trajectory metrics, solves and closed
+loop (``JAX_RECORDS``; XLA takes minutes to compile them) are stored in
+``tests/torch_data/test_torch_segmented_planes_jax.npz`` by
+``tools/torch_test_records.py --record test_torch_segmented_planes``; the
+port runs live on the same inputs.
 """
 import functools
 
@@ -46,6 +52,10 @@ from ocs2_tpu_torch.mpc.mrt import MpcMrtInterface, dummy_loop
 from ocs2_tpu_torch.oc import approx, metrics
 from ocs2_tpu_torch.oc.time_discretization import make_time_grid
 from ocs2_tpu_torch.solvers import sqp
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 RTOL, ATOL = 1e-4, 1e-5
 PLAN_ATOL = 1e-5
@@ -403,12 +413,24 @@ def lq_setup():
     return jg, tg, jparams, params, xs, us
 
 
+def _jax_segmented_lq():
+    jg, _, jparams, _, xs, us = lq_setup()
+    jprob = jfp.make_segmented_perceptive_problem(**OPTIONS)
+    return jax.jit(lambda x, u, g, p: japprox.approximate_lq(jprob, g, x, u, p, method="rk2"))(
+        jnp.asarray(xs), jnp.asarray(us), jg, jparams)
+
+
+def _jax_segmented_metrics():
+    jg, _, jparams, _, xs, us = lq_setup()
+    jprob = jfp.make_segmented_perceptive_problem(**OPTIONS)
+    return jax.jit(lambda x, u, g, p: jmetrics.evaluate_trajectory(jprob, g, x, u, p))(
+        jnp.asarray(xs), jnp.asarray(us), jg, jparams)
+
+
 @pytest.fixture(scope="module")
 def segmented_lq():
-    jg, tg, jparams, params, xs, us = lq_setup()
-    jprob = jfp.make_segmented_perceptive_problem(**OPTIONS)
-    ref = jax.jit(lambda x, u, g, p: japprox.approximate_lq(jprob, g, x, u, p, method="rk2"))(
-        jnp.asarray(xs), jnp.asarray(us), jg, jparams)
+    _, tg, _, params, xs, us = lq_setup()
+    ref = RECORDS["segmented_lq"]
     prob = fp.make_segmented_perceptive_problem(device="cpu", **OPTIONS)
     mine = approx.approximate_lq(prob, tg, T(xs)[None], T(us)[None], params, method="rk2")
     return mine, ref
@@ -429,10 +451,8 @@ def test_segmented_problem_lq_matches(segmented_lq, leaf):
 
 def test_segmented_problem_metrics_match():
     """The batch path of every term (scenarios and nodes as leading dims)."""
-    jg, tg, jparams, params, xs, us = lq_setup()
-    jprob = jfp.make_segmented_perceptive_problem(**OPTIONS)
-    ref = jax.jit(lambda x, u, g, p: jmetrics.evaluate_trajectory(jprob, g, x, u, p))(
-        jnp.asarray(xs), jnp.asarray(us), jg, jparams)
+    _, tg, _, params, xs, us = lq_setup()
+    ref = RECORDS["segmented_metrics"]
     mine = metrics.evaluate_trajectory(fp.make_segmented_perceptive_problem(device="cpu",
                                                                             **OPTIONS),
                                        tg, T(xs)[None].expand(2, -1, -1),
@@ -454,22 +474,32 @@ def _jax_segmented_solve():
         jprob, g, x, p, us_init=u, settings=jsqp.SqpSettings(**SQP_SETTINGS)))
 
 
-@functools.lru_cache(maxsize=None)
-def segmented_solve(kind):
+def _solve_inputs(kind):
     """The segmented problem at N = 14 over one trot cycle on the lane's map,
     from the default state, a fixed budget of 3 iterations; the target
     stands (trot in place, the front feet 0.15 m from the step edge) or is
     the lane's walk onto the step."""
-    jterr, terr = terrains("step_012")
-    jem, em = maps("step_012")
     jg, tg = trot_grids(0.0, HORIZON, N)
     jtarget, target = stand_target(HORIZON) if kind == "stand" else walk_target(HORIZON, 0.12)
-    x0 = start_state(None)
     u0 = np.asarray(jmodel.weight_compensating_input(jnp.ones(4)))
-    us = np.tile(u0[None], (N, 1)).astype(np.float32)
-    ref = _jax_segmented_solve()(
+    return jg, tg, jtarget, target, start_state(None), np.tile(u0[None], (N, 1)).astype(np.float32)
+
+
+def _jax_segmented_solve_of(kind):
+    jterr, _ = terrains("step_012")
+    jem, _ = maps("step_012")
+    jg, _, jtarget, _, x0, us = _solve_inputs(kind)
+    return _jax_segmented_solve()(
         jnp.asarray(x0), jnp.asarray(us), jg,
         jfp.make_perceptive_params(jg, jterr, jem, jnp.asarray(x0), jtarget))
+
+
+@functools.lru_cache(maxsize=None)
+def segmented_solve(kind):
+    _, terr = terrains("step_012")
+    _, em = maps("step_012")
+    _, tg, _, target, x0, us = _solve_inputs(kind)
+    ref = RECORDS[f"segmented_solve_{kind}"]
     params = fp.make_perceptive_params(tg, terr, em, torch.as_tensor(x0), target, device="cpu")
     mine = sqp.solve(fp.make_segmented_perceptive_problem(device="cpu"), tg, torch.as_tensor(x0),
                      params, us_init=T(us), settings=sqp.SqpSettings(**SQP_SETTINGS),
@@ -515,25 +545,26 @@ def test_walking_solve_matches_within_the_references_own_spread():
 # -- the closed loop -----------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def closed_loops():
+def _loop_inputs():
     """``dummy_loop`` over the segmented perceptive MPC in both packages: the
     0.08 m step, a 0.4 m/s forward target, N = 16 over 0.4 s, 15 Hz MPC,
     60 Hz control, 0.4 s (6 ticks)."""
-    jterr, terr = terrains("step_008")
-    jem, em = maps("step_008")
-    h, n = LOOP["horizon"], LOOP["n"]
     x_t = jmodel.default_state().at[0].set(0.4)
     u0 = jmodel.weight_compensating_input(jnp.ones(4))
     jtgt = JTargetTrajectories.create(
         times=[0.0, 4.0], states=jnp.stack([x_t, x_t.at[6].set(1.6).at[8].set(
             jmodel.STAND_HEIGHT + 0.08)]), inputs=jnp.stack([u0, u0]))
-    tgt = convert.target_trajectories_from_numpy(np_tree(jtgt), device="cpu")
-    jg0, tg0 = trot_grids(0.0, h, n)
-    x0 = start_state(None)
     st = dict(max_iterations=LOOP["max_iterations"], integrator="rk2")
     loop = {k: LOOP[k] for k in ("duration", "mrt_frequency", "mpc_frequency")}
+    return jtgt, start_state(None), st, loop
 
+
+def _jax_closed_loop():
+    jterr, _ = terrains("step_008")
+    jem, _ = maps("step_008")
+    h, n = LOOP["horizon"], LOOP["n"]
+    jtgt, x0, st, loop = _loop_inputs()
+    jg0, _ = trot_grids(0.0, h, n)
     ref_mpc = jmpc.Mpc(
         jfp.make_segmented_perceptive_problem(),
         jfp.make_perceptive_params(jg0, jterr, jem, jnp.asarray(x0), jtgt),
@@ -550,7 +581,28 @@ def closed_loops():
 
     ref_mpc._jitted = counted
     _, ref_xs, _ = jmrt.dummy_loop(jmrt.MpcMrtInterface(ref_mpc), jnp.asarray(x0), **loop)
+    return dict(iterations=np.asarray(ref_its, np.int32), xs=ref_xs)
 
+
+JAX_RECORDS = {
+    "segmented_lq": _jax_segmented_lq,
+    "segmented_metrics": _jax_segmented_metrics,
+    "segmented_solve_stand": lambda: _jax_segmented_solve_of("stand"),
+    "segmented_solve_walk": lambda: _jax_segmented_solve_of("walk"),
+    "closed_loop": _jax_closed_loop,
+}
+RECORDS = Records(__file__)
+
+
+@functools.lru_cache(maxsize=None)
+def closed_loops():
+    _, terr = terrains("step_008")
+    _, em = maps("step_008")
+    h, n = LOOP["horizon"], LOOP["n"]
+    jtgt, x0, st, loop = _loop_inputs()
+    tgt = convert.target_trajectories_from_numpy(np_tree(jtgt), device="cpu")
+    _, tg0 = trot_grids(0.0, h, n)
+    ref = RECORDS["closed_loop"]
     rm = fp.PerceptiveReferenceManager(terr, em, GaitSchedule(trot_gait(0.7)), target=tgt,
                                        device="cpu")
     mpc = Mpc(fp.make_segmented_perceptive_problem(device="cpu"),
@@ -565,7 +617,8 @@ def closed_loops():
                               inputs=mpc.last_solve_inputs, sol=mpc.last_solution))
 
     _, xs, _ = dummy_loop(MpcMrtInterface(mpc), torch.as_tensor(x0), observers=[observe], **loop)
-    return dict(mpc=mpc, ticks=ticks, xs=xs, ref_its=ref_its, ref_xs=np.asarray(ref_xs))
+    return dict(mpc=mpc, ticks=ticks, xs=xs, ref_its=ref["iterations"].tolist(),
+                ref_xs=ref["xs"])
 
 
 def test_closed_loop_matches_jax():

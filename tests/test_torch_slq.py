@@ -38,6 +38,9 @@ from ocs2_tpu_torch.oc.time_discretization import make_time_grid, uniform_grid
 from ocs2_tpu_torch.solvers import ddp
 from ocs2_tpu_torch.solvers.api import Solver
 
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
+
 SOLVE_ATOL, SOLVE_RTOL = 1e-3, 1e-4
 VALUE_RTOL, VALUE_ATOL = 1e-3, 2e-3
 COST_RTOL = 7e-3  # tests/test_exp_fixtures.py: fixed-step transcription vs ODE45

@@ -11,6 +11,11 @@ plain version of its kernel: float32 reassociation, hence tolerances).
 
 ``iterations`` and ``converged`` equal, ``xs``/``us`` within
 1e-3 + 1e-4 |value|, history step sizes equal.
+
+The JAX package's eight solves (``JAX_RECORDS``; XLA takes minutes to
+compile the legged ones) are stored in ``tests/torch_data/test_torch_sqp_jax.npz``
+by ``tools/torch_test_records.py --record test_torch_sqp``, with the
+starts they solved from; the port solves live.
 """
 import functools
 
@@ -33,6 +38,10 @@ from ocs2_tpu_torch.models.legged_robot import constraints as con
 from ocs2_tpu_torch.models.legged_robot import interface, model
 from ocs2_tpu_torch.oc.time_discretization import make_time_grid, uniform_grid
 from ocs2_tpu_torch.solvers import sqp
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 TOY_N, LEGGED_N = 12, 20
 # Seeds and iteration budgets fixed: the comparison holds step sizes equal,
@@ -51,19 +60,24 @@ def _toy_x0(batch, seed=0):
     return (0.5 * np.random.default_rng(seed).standard_normal((3, 2))).astype(np.float32)[:batch]
 
 
-def _toy_case(kind, batch):
+def _jax_toy_case(kind, batch):
     nu = 1 if kind == "unprojected" else 2
-    st = TOY_SETTINGS[kind]
     x0 = _toy_x0(batch, TOY_SEEDS[kind])
     one = lambda x: jsqp.solve(  # noqa: E731
         toy.jax_problem(nu), juniform_grid(0.0, 1.0, TOY_N), x, toy.jax_params(nu),
-        settings=jsqp.SqpSettings(**st))
+        settings=jsqp.SqpSettings(**TOY_SETTINGS[kind]))
     ref = jax.jit(one)(jnp.asarray(x0[0])) if batch == 1 else jax.jit(jax.vmap(one))(
         jnp.asarray(x0))
+    return dict(x0=x0, sol=ref)
+
+
+def _toy_case(kind, batch):
+    nu = 1 if kind == "unprojected" else 2
+    x0 = _toy_x0(batch, TOY_SEEDS[kind])
     mine = sqp.solve(
         toy.torch_problem(nu), uniform_grid(0.0, 1.0, TOY_N), x0 if batch > 1 else x0[0],
-        toy.torch_params(nu), settings=sqp.SqpSettings(**st), device="cpu")
-    return mine, ref
+        toy.torch_params(nu), settings=sqp.SqpSettings(**TOY_SETTINGS[kind]), device="cpu")
+    return mine, x0
 
 
 def _legged_grids(kind):
@@ -93,29 +107,38 @@ def _legged_inputs(batch):
     return x0s.astype(np.float32)[:batch], np.tile(u0[None], (LEGGED_N, 1)).astype(np.float32)
 
 
-def _legged_case(kind, batch):
-    jgrid, tgrid = _legged_grids(kind)
+def _jax_legged_case(kind, batch):
+    jgrid, _ = _legged_grids(kind)
     x0s, us = _legged_inputs(batch)
     ref = _jax_legged_solve(batch)(
         jnp.asarray(x0s if batch > 1 else x0s[0]), jnp.asarray(us), jgrid,
         jinterface.make_params(jgrid))
+    return dict(x0=x0s, sol=ref)
+
+
+def _legged_case(kind, batch):
+    _, tgrid = _legged_grids(kind)
+    x0s, us = _legged_inputs(batch)
     mine = sqp.solve(
         interface.make_problem(device="cpu"), tgrid, x0s if batch > 1 else x0s[0],
         interface.make_params(tgrid, device="cpu"), us_init=torch.as_tensor(us),
         settings=sqp.SqpSettings(**LEGGED_SETTINGS), device="cpu")
-    return mine, ref
+    return mine, x0s
 
 
 CASES = {
-    "toy_unprojected_b1": (_toy_case, "unprojected", 1),
-    "toy_unprojected_b3": (_toy_case, "unprojected", 3),
-    "toy_projected_b1": (_toy_case, "projected", 1),
-    "toy_projected_b3": (_toy_case, "projected", 3),
-    "legged_standing_b1": (_legged_case, "standing", 1),
-    "legged_standing_b3": (_legged_case, "standing", 3),
-    "legged_trot_b1": (_legged_case, "trot", 1),
-    "legged_trot_b3": (_legged_case, "trot", 3),
+    "toy_unprojected_b1": (_toy_case, _jax_toy_case, "unprojected", 1),
+    "toy_unprojected_b3": (_toy_case, _jax_toy_case, "unprojected", 3),
+    "toy_projected_b1": (_toy_case, _jax_toy_case, "projected", 1),
+    "toy_projected_b3": (_toy_case, _jax_toy_case, "projected", 3),
+    "legged_standing_b1": (_legged_case, _jax_legged_case, "standing", 1),
+    "legged_standing_b3": (_legged_case, _jax_legged_case, "standing", 3),
+    "legged_trot_b1": (_legged_case, _jax_legged_case, "trot", 1),
+    "legged_trot_b3": (_legged_case, _jax_legged_case, "trot", 3),
 }
+JAX_RECORDS = {name: functools.partial(jax_fn, kind, batch)
+               for name, (_, jax_fn, kind, batch) in CASES.items()}
+RECORDS = Records(__file__)
 
 
 LEGGED_CASES = [name for name in CASES if name.startswith("legged")]
@@ -123,9 +146,11 @@ LEGGED_CASES = [name for name in CASES if name.startswith("legged")]
 
 @functools.lru_cache(maxsize=None)
 def _run(name):
-    fn, kind, batch = CASES[name]
-    mine, ref = fn(kind, batch)
-    ref = jax.tree.map(np.asarray, ref)
+    fn, _, kind, batch = CASES[name]
+    mine, x0 = fn(kind, batch)
+    rec = RECORDS[name]
+    np.testing.assert_array_equal(rec["x0"], x0)  # the record solved these starts
+    ref = rec["sol"]
     if batch == 1:  # the port's batch of one against the un-vmapped solve
         ref = jax.tree.map(lambda a: a[None], ref)
     return name, batch, mine, ref

@@ -15,7 +15,10 @@ in float32); constraint values and
 Jacobians rtol 1e-4 / atol 1e-5 times the largest entry (1e-4 for the
 friction cone, which reads the fit's normal); LQ coefficients rtol 1e-4 /
 atol 1e-5 times the leaf's largest entry, as in
-``test_torch_legged_model.py`` (Hessians reach 1e4).
+``test_torch_legged_model.py`` (Hessians reach 1e4).  The JAX package's LQ
+approximation and trajectory metrics of the perceptive problem
+(``JAX_RECORDS``) are stored in ``tests/torch_data/test_torch_terrain_jax.npz``
+by ``tools/torch_test_records.py --record test_torch_terrain``.
 """
 import functools
 
@@ -37,6 +40,10 @@ from ocs2_tpu_torch import convert
 from ocs2_tpu_torch.models.legged_robot import interface, terrain
 from ocs2_tpu_torch.oc import approx, metrics
 from ocs2_tpu_torch.oc.time_discretization import make_time_grid
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 RTOL, ATOL = 1e-4, 1e-5
 N, HORIZON = 14, 0.7
@@ -254,14 +261,35 @@ def trajectory(batch, seed):
     return x.reshape(batch, N + 1, 24), u.reshape(batch, N + 1, 24)[:, :N]
 
 
-@pytest.fixture(scope="module")
-def elevation_problem_lq():
-    jem, em = maps("rough_slope")
-    jg, tg = grids()
+def _jax_elevation_problem_lq():
+    jem, _ = maps("rough_slope")
+    jg, _ = grids()
     xs, us = trajectory(1, seed=8)
     jp = jterrain.make_perceptive_problem(jem)
-    ref = jax.jit(lambda x, u, g, p: japprox.approximate_lq(jp, g, x, u, p, method="rk2"))(
+    return jax.jit(lambda x, u, g, p: japprox.approximate_lq(jp, g, x, u, p, method="rk2"))(
         jnp.asarray(xs[0]), jnp.asarray(us[0]), jg, jinterface.make_params(jg))
+
+
+def _jax_elevation_problem_metrics():
+    jem, _ = maps("step")
+    jg, _ = grids()
+    xs, us = trajectory(2, seed=9)
+    jp = jterrain.make_perceptive_problem(jem)
+    return jax.jit(jax.vmap(lambda x, u: jmetrics.evaluate_trajectory(
+        jp, jg, x, u, jinterface.make_params(jg))))(jnp.asarray(xs), jnp.asarray(us))
+
+
+JAX_RECORDS = {"elevation_problem_lq": _jax_elevation_problem_lq,
+               "elevation_problem_metrics": _jax_elevation_problem_metrics}
+RECORDS = Records(__file__)
+
+
+@pytest.fixture(scope="module")
+def elevation_problem_lq():
+    _, em = maps("rough_slope")
+    _, tg = grids()
+    xs, us = trajectory(1, seed=8)
+    ref = RECORDS["elevation_problem_lq"]
     tp = terrain.make_perceptive_problem(em, device="cpu")
     mine = approx.approximate_lq(tp, tg, T(xs), T(us), interface.make_params(tg, device="cpu"),
                                  method="rk2")
@@ -282,12 +310,10 @@ def test_elevation_problem_lq_matches(elevation_problem_lq, leaf):
 
 
 def test_elevation_problem_metrics_match():
-    jem, em = maps("step")
-    jg, tg = grids()
+    _, em = maps("step")
+    _, tg = grids()
     xs, us = trajectory(2, seed=9)
-    jp = jterrain.make_perceptive_problem(jem)
-    ref = jax.jit(jax.vmap(lambda x, u: jmetrics.evaluate_trajectory(
-        jp, jg, x, u, jinterface.make_params(jg))))(jnp.asarray(xs), jnp.asarray(us))
+    ref = RECORDS["elevation_problem_metrics"]
     mine = metrics.evaluate_trajectory(terrain.make_perceptive_problem(em, device="cpu"), tg,
                                        T(xs), T(us), interface.make_params(tg, device="cpu"))
     close(mine.cost, ref.cost)

@@ -40,6 +40,10 @@ from ocs2_tpu_torch.models.urdf import asset_path, chain_from_urdf, parse_urdf
 from ocs2_tpu_torch.oc import approx
 from ocs2_tpu_torch.oc.time_discretization import uniform_grid
 from ocs2_tpu_torch.solvers import sqp
+from tools._records import Records
+
+torch.set_num_threads(1)  # one intra-op thread a test process: the suite runs in several
+# processes at once (pytest-xdist), and these small tensors gain nothing from more.
 
 ARMS = {
     "franka": dict(file="franka_panda.urdf", base="root", ee="panda_hand_tcp",
@@ -205,22 +209,43 @@ def test_fixed_base_arm_reaches_its_target(arm):
 # -- the arms on the reference's base types (chip_smoke.py's urdf_variants_b1) ----
 
 
+VARIANT_LQ = dict(n=3, b=2, seed=12, r_down=np.float32([[1.0, 0, 0], [0, -1.0, 0],
+                                                          [0, 0, -1.0]]))
+
+
+def _variant_lq_inputs(nx, nu):
+    n, b = VARIANT_LQ["n"], VARIANT_LQ["b"]
+    rng = np.random.default_rng(VARIANT_LQ["seed"])
+    xs = rng.uniform(-0.8, 0.8, (b, n + 1, nx)).astype(np.float32)
+    us = rng.standard_normal((b, n, nu)).astype(np.float32)
+    return n, xs, us
+
+
+def _jax_variant_lq():
+    jp = jmm.make_urdf_manipulator_problem(_load("franka", jurdf), base_type="wheel_based")
+    n, xs, us = _variant_lq_inputs(jp.nx, jp.nu)
+    return jax.jit(jax.vmap(lambda x, u: japprox.approximate_lq(
+        jp, juniform_grid(0.0, 0.6, n), x, u,
+        jmm.make_params((0.6, 0.2, 0.4), VARIANT_LQ["r_down"]))))(
+            jnp.asarray(xs), jnp.asarray(us))
+
+
+JAX_RECORDS = {"franka_wheel_based_lq": _jax_variant_lq}
+RECORDS = Records(__file__)
+
+
 def test_variant_lq_data_matches_jax():
     """The franka on a wheeled base with an orientation target: its LQ data
     (rk4) against the JAX package's at B = 2, N = 3 (atol 1e-5 times the
-    leaf's largest entry, rtol 1e-4)."""
-    n, b = 3, 2
+    leaf's largest entry, rtol 1e-4; the JAX side stored by
+    ``tools/torch_test_records.py --record test_torch_urdf``)."""
     loaded, jloaded = _load("franka"), _load("franka", jurdf)
     p = mm.make_urdf_manipulator_problem(loaded, base_type="wheel_based")
     jp = jmm.make_urdf_manipulator_problem(jloaded, base_type="wheel_based")
     assert p.cost_structure_psd is jp.cost_structure_psd is False
-    rng = np.random.default_rng(12)
-    xs = rng.uniform(-0.8, 0.8, (b, n + 1, p.nx)).astype(np.float32)
-    us = rng.standard_normal((b, n, p.nu)).astype(np.float32)
-    r_down = np.float32([[1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]])
-    ref = jax.jit(jax.vmap(lambda x, u: japprox.approximate_lq(
-        jp, juniform_grid(0.0, 0.6, n), x, u, jmm.make_params((0.6, 0.2, 0.4), r_down))))(
-            jnp.asarray(xs), jnp.asarray(us))
+    n, xs, us = _variant_lq_inputs(p.nx, p.nu)
+    r_down = VARIANT_LQ["r_down"]
+    ref = RECORDS["franka_wheel_based_lq"]
     mine = approx.approximate_lq(p, uniform_grid(0.0, 0.6, n), torch.as_tensor(xs),
                                  torch.as_tensor(us),
                                  mm.make_params((0.6, 0.2, 0.4), r_down, device="cpu"))

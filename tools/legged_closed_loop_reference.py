@@ -8,7 +8,7 @@
 ``ocs2_tpu.mpc`` runs ``dummy_loop`` over the same MPC as the chip phase:
 SRBD legged robot, trot 0.7 s, N = 100 over 1 s,
 ``SqpSettings(max_iterations=10, integrator="rk2")``, 400 Hz control, 50 Hz
-MPC, from the default state, for ``chip_smoke.MPC_DURATION`` (0.3 s).  Prints one JSON line: the SQP
+MPC, from the default state, for ``chip_smoke.MPC_DURATION`` (0.2 s).  Prints one JSON line: the SQP
 iterations of every tick and the largest deviation of the base height from
 ``STAND_HEIGHT``.  With ``--compare`` (the file ``chip_smoke.py
 --closed-loop-out`` writes on the card) it also gives the ticks whose

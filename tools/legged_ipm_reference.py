@@ -9,7 +9,7 @@ Default: ``ocs2_tpu.solvers.ipm.solve`` on the chip phase's problem (SRBD,
 trot 0.7 s, N = 100 over 1 s, rk2, the hard friction cone as the barrier's
 inequality, the foot constraint projected, ``IpmSettings(max_iterations=15)``):
 the cold solve from the default state and the weight-compensating inputs,
-then ``chip_smoke.IPM_CHAINS`` chains of 6 receding-horizon ticks, each starting at the solved
+then ``chip_smoke.IPM_CHAINS`` chains of ``IPM_TICKS_PER_CHAIN`` receding-horizon ticks, each starting at the solved
 xs[1] and warm-started with the solved inputs.  Prints one JSON line: the
 iterations, convergence, final mu and smallest stance slack of every solve.
 With ``--compare`` (the file ``chip_smoke.py --ipm-out`` writes on the card)
