@@ -87,7 +87,24 @@ main paths and checks that they went through the kernels:
   ``mpcnet_ballbot_train`` (``make_ballbot_mpcnet()``: 8 scenarios x 6
   steps, 3 rounds of 200 Adam steps, the kernel at (8, 16, 10, 3)), each
   round 0 held against the JAX package's record in ``tests/torch_data/``
-  and the trained policies against the JAX tests' criteria.
+  and the trained policies against the JAX tests' criteria;
+* the associative-scan Riccati (K7, ``ops/riccati.lqr_backward_parallel``:
+  torch ops, no kernel): ``parallel_riccati_check`` (K7 at (24, 12, 1, 100),
+  (24, 12, 256, 100) and (10, 3, 4096, 32), held against K1 and the plain
+  version, timed beside K1), ``legged_parallel_riccati_b1`` (the flagship
+  SQP at N = 100 with ``parallel_riccati=True``: K1 launched no time, held
+  against the JAX package's record and the K1 route) and
+  ``ballbot_ilqr_parallel_b4096`` (main_path's batch with K7, held against
+  the K1 route and, on its first 64 scenarios, the JAX record);
+  ``sqp_phase_profile`` (``utils/profiling.profile_sqp_phases`` on the entry
+  step's problem, K1 in its ``riccati_seq`` phase); ``entry_step``
+  (``ocs2_tpu_torch/entry.entry()``'s step, the flagship SQP at N = 32, K1 at
+  (1, 32, 24, 12) strict, held against the JAX record of
+  ``__graft_entry__.entry()``); ``dryrun_multichip`` (``dryrun_multichip``
+  over every card, then over four shards on cuda:0: the scenario batch
+  split over the mesh through K1 at (2, 8, 24, 12), the horizon-sharded PIPG
+  (K9, ``parallel/horizon.py``) held against ``pipg_solve``, the SQP with
+  ``qp_solver="pipg_sharded"`` against ``"pipg"``).
 
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  The continuous-time kernel's
@@ -164,7 +181,16 @@ def nvidia_smi_line() -> str:
 
 
 def random_lq(torch, riccati, nx, nu, batch, n, seed):
-    """Numpy-seeded LQ data on the card: A ~ I, PD Quu, small couplings."""
+    """Numpy-seeded LQ data on the card (random_lq_numpy) and REG_VALUES
+    repeated over the batch."""
+    leaves, reg = random_lq_numpy(nx, nu, batch, n, seed)
+    coeffs = riccati.LqrCoeffs(**{k: torch.as_tensor(v, device="cuda") for k, v in leaves.items()})
+    return coeffs, torch.as_tensor(reg, device="cuda")
+
+
+def random_lq_numpy(nx, nu, batch, n, seed):
+    """Numpy-seeded LQ data: A ~ I, PD Quu, small couplings; leaves [B, N, ...]
+    and the per-scenario reg, as numpy float32."""
     rng = np.random.default_rng(seed)
     r = lambda scale, *s: (scale * rng.standard_normal(s)).astype(np.float32)  # noqa: E731
     eye_x, eye_u = np.eye(nx, dtype=np.float32), np.eye(nu, dtype=np.float32)
@@ -182,10 +208,7 @@ def random_lq(torch, riccati, nx, nu, batch, n, seed):
         Qf=np.broadcast_to(eye_x, (batch, nx, nx)).copy(),
         qf=r(0.1, batch, nx),
     )
-    coeffs = riccati.LqrCoeffs(**{k: torch.as_tensor(v, device="cuda") for k, v in leaves.items()})
-    reg = torch.as_tensor(
-        np.resize(np.asarray(REG_VALUES, np.float32), batch), device="cuda")
-    return coeffs, reg
+    return leaves, np.resize(np.asarray(REG_VALUES, np.float32), batch)
 
 
 def riccati_bound(nx, nu, batch, n):
@@ -3859,6 +3882,340 @@ def mpcnet_ballbot_train(torch, riccati_cuda, at_train, at_eval, out=None):
     return rec_out
 
 
+# -- the last slice: the associative-scan Riccati (K7), the phase profile, the
+# entry step and the multi-device dry run with the horizon-sharded PIPG (K9).
+
+PR_RECORD = os.path.join(_DATA, "parallel_riccati_reference.npz")
+# parallel_riccati_check's (nx, nu, B, N): the legged tick's, the legged
+# batch's and the ballbot batch's sweeps, on random_lq data.
+K7_SHAPES = [(24, 12, 1, 100), (24, 12, 256, 100), (10, 3, 4096, 32)]
+K7_SEEDS = (81, 82, 83)
+# K7 against K1 and the plain version: tests/test_riccati.py:41-48's atol
+# beside a relative part for the legged value function (entries in the
+# thousands).
+K7_ATOL, K7_RTOL = 5e-3, 1e-3
+K7_FIELDS = ("value_S", "value_s", "gains", "kff")
+PR_BALLBOT_RECORD_BATCH = 64  # the record holds the ballbot batch's first 64
+ENTRY_N = 32  # __graft_entry__.entry()'s horizon
+ENTRY_SHAPE = (24, 12, 1, ENTRY_N)
+ENTRY_COST_RTOL = 1e-5
+HORIZON_SHARDS = 4  # the time mesh on cuda:0, the device listed four times
+# The dry run's scenario chunks: two flagship solves at N = 8 a shard.
+DRYRUN_SHAPE = (24, 12, 2, 8)
+SHARDED_XS_ATOL = 5e-3  # tests/test_sharding.py:174-175
+HORIZON_JAX_TOL = 2e-3  # tests/test_sharding.py:45-51
+
+
+def hold_k7(torch, out, ref):
+    """K7 against another route to the same sweep: every entry of K7_FIELDS
+    within K7_ATOL + K7_RTOL |value| and finite.  Returns the largest
+    absolute difference."""
+    worst = 0.0
+    for f in K7_FIELDS:
+        a, b = getattr(out, f), getattr(ref, f)
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        assert bool(torch.isfinite(a).all()), f"K7: non-finite {f}"
+        assert bool((d <= K7_ATOL + K7_RTOL * b.abs()).all()), (f"K7: {f}", float(d.max()))
+    return worst
+
+
+def parallel_riccati_check(torch, riccati, riccati_cuda, k1_checks):
+    """K7 (``lqr_backward_parallel``, torch ops) on the card at K7_SHAPES,
+    held against K1 (strict at B = 1, clamped otherwise) and the plain
+    version on the same random_lq data; it launches K1 no time.  Its time is
+    the median of 20 calls by CUDA events after 3 warm-ups, beside K1's, the
+    plain version's (kernel_check's at the shape) and the sweep's bound;
+    its launches per call come from the profiler.  Beside the largest
+    difference, the JAX package's own distance from its K7 to its sequential
+    sweep on the same inputs (the record)."""
+    rec_pr = load_record(PR_RECORD)
+    out_recs = []
+    for shape, seed in zip(K7_SHAPES, K7_SEEDS):
+        nx, nu, batch, n = shape
+        coeffs, reg = random_lq(torch, riccati, nx, nu, batch, n, seed)
+        before = riccati_cuda.launch_count
+        out = riccati.lqr_backward_parallel(coeffs, reg)
+        torch.cuda.synchronize()
+        assert riccati_cuda.launch_count == before, "K7 launched K1"
+        k1 = riccati.lqr_backward(coeffs, reg)
+        plain = riccati._lqr_backward_batched(coeffs, reg, strict=batch == 1)
+        err = {"vs_k1": hold_k7(torch, out, k1), "vs_plain": hold_k7(torch, out, plain)}
+        key = "k7_{}_{}_{}_{}".format(*shape)
+        jax_dist = {f: float(rec_pr[f"{key}_{f}_max_abs"]) for f in K7_FIELDS}
+        k7 = lambda: riccati.lqr_backward_parallel(coeffs, reg)  # noqa: E731
+        rec = {
+            "phase": "parallel_riccati_check", "kernel": "lqr_backward_parallel",
+            "route": "torch", "nx": nx, "nu": nu, "B": batch, "N": n,
+            "max_abs_err": max(err.values()), "max_abs_err_vs": err,
+            "atol": K7_ATOL, "rtol": K7_RTOL, "jax_k7_vs_sequential_max_abs": jax_dist,
+            "ms": time_ms(torch, k7, reps=20, warmup=3),
+            "ms_queued": time_ms_queued(torch, k7, reps=20, warmup=3),
+            "launches_per_call": count_launches(torch, k7),
+            "k1_ms": time_ms(torch, lambda: riccati.lqr_backward(coeffs, reg), reps=20, warmup=3),
+            "plain_ms": k1_checks[shape]["plain_ms"],
+            **{k: v for k, v in riccati_bound(nx, nu, batch, n).items()
+               if k in ("bound_ms", "bound_by", "bound_term", "bytes_ms", "flops_ms",
+                        "chain_ms")},
+            "ok": True,
+        }
+        rec["k7_over_k1"] = rec["ms"] / rec["k1_ms"]
+        emit(rec)
+        out_recs.append(rec)
+    return out_recs
+
+
+def legged_parallel_riccati_b1(torch, riccati, riccati_cuda, cfg, cold_b1):
+    """The flagship SQP (N = 100, 10 iterations) at B = 1, one cold solve with
+    ``parallel_riccati=True``: K1 launches no time, K7 once an iteration.  Held
+    to the JAX package's record of the same solve (iterations equal or tied
+    at equal merit; xs, us within SOLVE_ATOL + SOLVE_RTOL |value|, contact
+    forces at FORCE_ATOL) and to the port's K1 route (legged_tick_b1's cold
+    solve) alike."""
+    rec_pr = load_record(PR_RECORD)
+    par_cfg = dict(cfg, settings=dataclasses.replace(cfg["settings"], parallel_riccati=True))
+    riccati_cuda.launch_count = 0
+    riccati.parallel_calls = 0
+    t0 = time.perf_counter()
+    sol = legged_solve(par_cfg, cfg["x0"], cfg["us_init"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, k7_calls = riccati_cuda.launch_count, riccati.parallel_calls
+    assert launches == 0, f"K1 ran {launches} times with parallel_riccati=True"
+    assert k7_calls == int(sol.iterations[0]) > 0, (k7_calls, sol.iterations.tolist())
+    check_legged_solution(torch, cfg, sol, "parallel Riccati b1")
+    assert np.array_equal(rec_pr["flagship_x0"], cfg["x0"].cpu().numpy())
+    ref = record_solution(torch, rec_pr, "flagship_", rows=None)
+    vs_jax, tied_jax, _ = compare_with_ties(torch, sol, ref, "parallel Riccati vs the JAX record",
+                                            max_tied_share=1.0, force_atol=FORCE_ATOL)
+    vs_k1, tied_k1, _ = compare_with_ties(torch, sol, cold_b1, "parallel Riccati vs K1",
+                                          max_tied_share=1.0, force_atol=FORCE_ATOL)
+    rec = {
+        "phase": "legged_parallel_riccati_b1", "B": 1, "N": LEGGED_N, "nx": 24, "nu": 24,
+        "max_iterations": par_cfg["settings"].max_iterations,
+        "seconds_per_solve": seconds, "iterations": int(sol.iterations[0]),
+        "k1_route_iterations": int(cold_b1.iterations[0]),
+        "jax_record_iterations": int(rec_pr["flagship_iterations"]),
+        "jax_spread": {"xs": float(rec_pr["flagship_spread_xs"]),
+                       "us": float(rec_pr["flagship_spread_us"])},
+        "riccati_launches": launches, "k7_calls": k7_calls,
+        "vs_jax_record": vs_jax, "tied_with_jax_record": tied_jax,
+        "vs_k1_route": vs_k1, "tied_with_k1_route": tied_k1,
+        "merit": float(sol.performance.merit[0]), "ok": True,
+    }
+    emit(rec)
+    return rec
+
+
+def hold_against_the_sequential_route(torch, sol, k1_sol, rec_pr, what, max_share=0.02):
+    """K7's ballbot batch solve against the K1 route, scenario by scenario.
+
+    A scenario agrees as compare_with_ties holds two routes: iterations equal
+    (or tied: apart at a merit equal to 1e-6 relative), xs (and us unless
+    tied) within SOLVE_ATOL + SOLVE_RTOL |value|.  The JAX package's own
+    associative scan and sequential sweep part on some scenarios of the same
+    batch by more than that (the record's ``ballbot_all_k7_seq_*``: float32
+    rounding carried through iterations that stop at the budget).  A
+    scenario that does not agree is held to the largest distance in xs and
+    in us between the JAX package's two sweeps over the batch, never past
+    it, and such scenarios together with the ties to ``max_share`` of the
+    batch (main_path's share of ties).  Returns the counts and the largest
+    differences beside the JAX package's own."""
+    env = {f: float(rec_pr[f"ballbot_all_k7_seq_{f}"].max()) for f in ("xs", "us")}
+    rel = (sol.performance.merit - k1_sol.performance.merit).abs() / (
+        k1_sol.performance.merit.abs().clamp(min=1e-30))
+    its_equal = sol.iterations == k1_sol.iterations
+    tied = ~its_equal & (rel <= 1e-6)
+    ok, within_env, err = {}, torch.ones_like(its_equal), {}
+    for f in ("xs", "us"):
+        a, b = getattr(sol, f), getattr(k1_sol, f)
+        d = (a - b).abs()
+        err[f] = float(d.max())
+        ok[f] = (d <= SOLVE_ATOL + SOLVE_RTOL * b.abs()).flatten(1).all(1)
+        within_env &= d.flatten(1).amax(1) <= env[f]
+    strict = (its_equal & ok["xs"] & ok["us"]) | (tied & ok["xs"])
+    held = ~strict & within_env
+    bad = torch.nonzero(~(strict | held)).flatten().tolist()
+    assert not bad, (f"{what}: scenarios past the JAX package's own K7-to-sequential distance",
+                     bad, err, env)
+    apart = int((~strict).sum())
+    assert apart <= max_share * strict.shape[0], (f"{what}: {apart} scenarios apart", err)
+    jax_apart = ((rec_pr["ballbot_all_k7_seq_xs"] > SOLVE_ATOL)
+                 | (rec_pr["ballbot_all_k7_seq_us"] > SOLVE_ATOL))
+    return {"max_abs_err": err, "tied": int(tied.sum()),
+            "held_to_jax_k7_vs_sequential": int(held.sum()),
+            "iterations_differ": int((~its_equal).sum()),
+            "jax_k7_vs_sequential_max": env,
+            "jax_k7_vs_sequential_apart_by_1e-3": int(jax_apart.sum()),
+            "jax_k7_vs_sequential_iterations_differ": int(
+                (rec_pr["ballbot_all_iterations"] != rec_pr["ballbot_all_seq_iterations"]).sum())}
+
+
+def ballbot_ilqr_parallel_b4096(torch, riccati, riccati_cuda, main_run, solves=TIMED_SOLVES):
+    """``ddp.solve`` (iLQR) on main_path's 4,096 scenarios with
+    ``parallel_riccati=True``, timed once after a warm-up: K1 launches no
+    time.  Held to the K1 route by hold_against_the_sequential_route (at most
+    2 % of the scenarios apart, none past the JAX package's own distance
+    between its two sweeps), its first 64 scenarios to the JAX package's
+    record."""
+    from ocs2_tpu_torch.solvers import ddp
+
+    problem, params, grid, x0s = ballbot_batch(torch)
+    settings = ddp.DdpSettings(algorithm="ilqr", max_iterations=8)
+    par_settings = dataclasses.replace(settings, parallel_riccati=True)
+
+    def solve(st):
+        sol = ddp.solve(problem, grid, x0s, params, settings=st, device=DEVICE)
+        torch.cuda.synchronize()
+        return sol
+
+    solve(par_settings)  # warm-up
+    riccati_cuda.launch_count = 0
+    riccati.parallel_calls = 0
+    seconds = []
+    for _ in range(solves):
+        t0 = time.perf_counter()
+        sol = solve(par_settings)
+        seconds.append(time.perf_counter() - t0)
+    launches, k7_calls = riccati_cuda.launch_count, riccati.parallel_calls
+    assert launches == 0, f"K1 ran {launches} times with parallel_riccati=True"
+    assert k7_calls == solves * int(sol.iterations.max()) > 0, k7_calls
+    assert bool(torch.isfinite(sol.xs).all()) and bool(torch.isfinite(sol.us).all())
+    k1_sol = solve(settings)
+    rec_pr = load_record(PR_RECORD)
+    vs_k1 = hold_against_the_sequential_route(torch, sol, k1_sol, rec_pr, "ballbot K7 vs K1")
+    first = slice(0, PR_BALLBOT_RECORD_BATCH)
+    assert np.array_equal(rec_pr["ballbot_x0s"], x0s[first].cpu().numpy())
+    vs_record = compare_with_record(torch, take_rows(sol, first), rec_pr, "ballbot_",
+                                    "ballbot K7 vs the JAX record")
+    sec = statistics.median(seconds)
+    rec = {
+        "phase": "ballbot_ilqr_parallel_b4096", "B": x0s.shape[0], "N": grid.num_intervals,
+        "max_iterations": settings.max_iterations, "solves_timed": solves,
+        "seconds_per_solve": sec, "solves_per_s": x0s.shape[0] / sec,
+        "main_path_solves_per_s": main_run["solves_per_s"],
+        "riccati_launches": launches, "k7_calls": k7_calls,
+        "vs_k1_route": vs_k1,
+        "vs_jax_record": vs_record,
+        "iterations_equal_to_jax_record": int((sol.iterations[first].cpu().numpy()
+                                               == rec_pr["ballbot_iterations"]).sum()),
+        "ok": True,
+    }
+    emit(rec)
+    return rec
+
+
+def sqp_phase_profile(torch, riccati, riccati_cuda, full=False):
+    """``utils/profiling.profile_sqp_phases`` on entry()'s problem (N = 32;
+    with ``full`` also the flagship at N = 100), warmup 1, reps 3; prints
+    ``format_report``'s lines.  Its riccati_seq phase and its full solves run
+    K1 at (1, N, 24, 12) strict."""
+    from ocs2_tpu_torch.models.legged_robot import interface, model
+    from ocs2_tpu_torch.models.legged_robot.gait import GaitSchedule, trot_gait
+    from ocs2_tpu_torch.oc.time_discretization import make_time_grid
+    from ocs2_tpu_torch.solvers import sqp
+    from ocs2_tpu_torch.utils.profiling import format_report, profile_sqp_phases
+
+    recs = []
+    for n in (ENTRY_N, LEGGED_N) if full else (ENTRY_N,):
+        ms = GaitSchedule(trot_gait(0.7)).mode_schedule(0.0, 1.0)
+        grid = make_time_grid(0.0, 1.0, n, event_times=ms.event_times,
+                              mode_sequence=ms.mode_sequence)
+        u0 = model.weight_compensating_input(np.ones(4, np.float32), DEVICE)
+        riccati_cuda.launch_count = 0
+        riccati.parallel_calls = 0
+        report = profile_sqp_phases(
+            interface.make_problem(device=DEVICE), grid, model.default_state(DEVICE),
+            interface.make_params(grid, device=DEVICE),
+            sqp.SqpSettings(max_iterations=10, integrator="rk2"),
+            us_init=u0[None].expand(n, model.NU), device=DEVICE, warmup=1, reps=3)
+        assert all(np.isfinite(v) and v > 0 for v in report.values()), report
+        rec = {"phase": "sqp_phase_profile", "N": n, "warmup": 1, "reps": 3,
+               "report_ms": {k: 1e3 * v for k, v in report.items()},
+               "report": format_report(report).splitlines(),
+               "riccati_launches": riccati_cuda.launch_count,
+               "k7_calls": riccati.parallel_calls,
+               "kernel_dims": list(riccati_cuda.last_launch_dims or ())}
+        assert rec["riccati_launches"] > 0 and rec["k7_calls"] > 0, rec
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def entry_step(torch, riccati_cuda):
+    """``entry()``'s step on the card: K1 at (1, 32, 24, 12) strict, one
+    launch an SQP iteration; held to the JAX package's record of
+    ``__graft_entry__.entry()``'s jitted step (iterations, xs and us within
+    SOLVE_ATOL + SOLVE_RTOL |value|, cost within ENTRY_COST_RTOL)."""
+    from ocs2_tpu_torch.entry import entry
+
+    rec_pr = load_record(PR_RECORD)
+    step, (x0,) = entry(device=DEVICE)
+    assert np.array_equal(rec_pr["entry_x0"], x0.cpu().numpy())
+    riccati_cuda.launch_count = 0
+    riccati_cuda.last_launch_dims = None
+    t0 = time.perf_counter()
+    xs, us, cost = step(x0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
+    assert dims == (1, ENTRY_N, 24, 12), dims
+    assert launches == int(rec_pr["entry_iterations"]), (launches, rec_pr["entry_iterations"])
+    err = {}
+    for name, mine in (("xs", xs), ("us", us)):
+        ref = torch.as_tensor(rec_pr[f"entry_{name}"], device=DEVICE)
+        err[name] = float((mine - ref).abs().max())
+        assert bool(((mine - ref).abs() <= SOLVE_ATOL + SOLVE_RTOL * ref.abs()).all()), (
+            name, err[name])
+    cost_rel = abs(float(cost) - float(rec_pr["entry_cost"])) / abs(float(rec_pr["entry_cost"]))
+    assert cost_rel <= ENTRY_COST_RTOL, cost_rel
+    rec = {"phase": "entry_step", "N": ENTRY_N, "seconds_first_call": seconds,
+           "iterations": launches, "jax_record_iterations": int(rec_pr["entry_iterations"]),
+           "riccati_launches": launches, "kernel_dims": list(dims), "vs_jax_record": err,
+           "cost": float(cost), "cost_rel_diff": cost_rel, "ok": True}
+    emit(rec)
+    return rec
+
+
+def dryrun_multichip_phase(torch, riccati_cuda):
+    """``dryrun_multichip`` over every card, then over HORIZON_SHARDS shards
+    on cuda:0 (the device listed four times, so that the halo exchange runs
+    on the card): its horizon-sharded QP held against ``pipg_solve`` on the
+    same data, its ``"pipg_sharded"`` SQP against ``"pipg"``.  The scenario
+    batches' flagship solves run K1 at (2, 8, 24, 12), clamped."""
+    from ocs2_tpu_torch.entry import dryrun_multichip, dryrun_qp_coeffs, dryrun_sqp
+    from ocs2_tpu_torch.ops.pipg import PipgSettings, pipg_solve, ruiz_equilibrate
+
+    riccati_cuda.launch_count = 0
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    dryrun_multichip(cards, devices=[torch.device(DEVICE, i) for i in range(cards)])
+    torch.cuda.synchronize()
+    seconds_all = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = dryrun_multichip(HORIZON_SHARDS, devices=[torch.device(DEVICE, 0)] * HORIZON_SHARDS)
+    torch.cuda.synchronize()
+    seconds_shards = time.perf_counter() - t0
+    launches = riccati_cuda.launch_count
+    assert launches > 0 and riccati_cuda.last_launch_dims == (2, 8, 24, 12), (
+        launches, riccati_cuda.last_launch_dims)
+    scaled, scal = ruiz_equilibrate(dryrun_qp_coeffs(HORIZON_SHARDS, DEVICE), 3)
+    ref_dxs = scal.d_x * pipg_solve(scaled, PipgSettings(num_iterations=200)).dxs
+    qp_err = float((out["qp_dxs"] - ref_dxs).abs().max())
+    assert bool(((out["qp_dxs"] - ref_dxs).abs()
+                 <= HORIZON_JAX_TOL + HORIZON_JAX_TOL * ref_dxs.abs()).all()), qp_err
+    plain = dryrun_sqp(HORIZON_SHARDS, DEVICE, qp_solver="pipg")
+    sqp_err = float((out["sqp"].xs - plain.xs).abs().max())
+    assert sqp_err <= SHARDED_XS_ATOL, sqp_err
+    rec = {"phase": "dryrun_multichip", "cards": cards, "seconds_over_cards": seconds_all,
+           "shards_on_cuda0": HORIZON_SHARDS, "seconds_over_shards": seconds_shards,
+           "qp_vs_pipg_solve_max_abs_err": qp_err, "qp_residual": float(out["qp_residual"][0]),
+           "sqp_sharded_vs_pipg_xs_max_abs_err": sqp_err, "riccati_launches": launches,
+           "kernel_dims": list(riccati_cuda.last_launch_dims), "ok": True}
+    emit(rec)
+    return rec
+
+
 def profile_slq(torch):
     """Where one SLQ iteration of the b4096 lane spends its time: host-clock
     medians of approximate_lq_ct, the CT sweep (kernel), the line search's
@@ -4326,12 +4683,15 @@ def main() -> int:
           + [f"riccati_ct_backward nx{a}_nu{b}" for a, b in ct_pairs],
           "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(jobs, logs)})
 
-    emit({"phase": "kernels", "kernels": ["riccati_backward", "riccati_ct_backward"],
+    emit({"phase": "kernels", "kernels": ["riccati_backward", "riccati_ct_backward",
+                                          "lqr_backward_parallel"],
           "shapes": [list(s) for s in KERNEL_SHAPES + [STRICT_SHAPE, PERC_SHAPE, LOOP_SHAPE,
                                                        CK_TROT_SHAPE, SLP_SHAPE, HYB_SHAPE,
                                                        SWITCH_SHAPE] + ZOO_SHAPES
                      + [LS_SHAPE, LS_LOOP_SHAPE, LS_BATCH_SHAPE]
-                     + list(MPCNET_SHAPES.values()) + list(MPCNET_EVAL_SHAPES.values())],
+                     + list(MPCNET_SHAPES.values()) + list(MPCNET_EVAL_SHAPES.values())
+                     + [DRYRUN_SHAPE]],
+          "parallel_shapes": [list(s) for s in K7_SHAPES],
           "ct_shapes": [list(s[:4]) for s in CT_SHAPES + [ZOO_CT_SHAPE]]})
     checks = [
         check_kernel(torch, riccati, riccati_cuda, shape, seed=11 + i, timed=i < 3)
@@ -4376,6 +4736,8 @@ def main() -> int:
         for i, (lane, shape) in enumerate(list(MPCNET_SHAPES.items())
                                           + [(f"{k}_eval", v) for k, v in
                                              MPCNET_EVAL_SHAPES.items()])}
+    # The dry run's scenario chunks (clamped at B = 2).
+    at_dry = check_kernel(torch, riccati, riccati_cuda, DRYRUN_SHAPE, seed=85, timed=True)
     if args.skip_main_path:
         return 0
     run = main_path(torch, riccati_cuda)
@@ -4448,6 +4810,29 @@ def main() -> int:
     if args.mpcnet_out:
         with open(args.mpcnet_out, "w") as f:
             json.dump(mn_out, f)
+    # The associative-scan Riccati (K7), the phase profile, the entry step and
+    # the multi-device dry run with the horizon-sharded PIPG (K9).
+    last_seconds = {}
+    t0 = time.perf_counter()
+    k7_checks = parallel_riccati_check(torch, riccati, riccati_cuda, {
+        MAIN_SHAPE: checks[0], LEGGED_SHAPE: checks[2], STRICT_SHAPE: at_b1})
+    last_seconds["parallel_riccati_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pr_b1 = legged_parallel_riccati_b1(torch, riccati, riccati_cuda, cfg, cold_b1)
+    last_seconds["legged_parallel_riccati_b1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pr_ballbot = ballbot_ilqr_parallel_b4096(torch, riccati, riccati_cuda, run)
+    last_seconds["ballbot_ilqr_parallel_b4096"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = sqp_phase_profile(torch, riccati, riccati_cuda, full=args.profile)
+    last_seconds["sqp_phase_profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ent = entry_step(torch, riccati_cuda)
+    last_seconds["entry_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = dryrun_multichip_phase(torch, riccati_cuda)
+    last_seconds["dryrun_multichip"] = time.perf_counter() - t0
+    emit({"phase": "last_slice_seconds", **last_seconds, "total": sum(last_seconds.values())})
     if args.profile:
         profile_slq(torch)
         profile_main_path(torch)
@@ -4478,10 +4863,12 @@ def main() -> int:
         + slp_run["sqp_check_riccati_launches"] + cart["ilqr"]["launches"]
         + ls_trot["riccati_launches"] + ls_trot["unshaped"]["riccati_launches"]
         + sum(r["riccati_launches"] + r["evaluate_run"]["riccati_launches"]
-              for r in (mn_legged, mn_ballbot)) + mn_b256["riccati_launches"],
+              for r in (mn_legged, mn_ballbot)) + mn_b256["riccati_launches"]
+        + sum(r["riccati_launches"] for r in prof) + ent["riccati_launches"]
+        + dry["riccati_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in checks + [
-            at_b1, at_perc, at_loop, at_trot, at_slp, at_hyb, at_switch] + list(zoo.values())
-            + list(ls_checks.values()) + list(mpcnet_checks.values())),
+            at_b1, at_perc, at_loop, at_trot, at_slp, at_hyb, at_switch, at_dry]
+            + list(zoo.values()) + list(ls_checks.values()) + list(mpcnet_checks.values())),
         "shape": dict(zip(("nx", "nu", "B", "N"), MAIN_SHAPE)),
         "ms": at_main["kernel_ms"], "plain_ms": at_main["plain_ms"],
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
@@ -4610,6 +4997,19 @@ def main() -> int:
             {"path": "mpcnet_legged_datagen_b256", "launches": mn_b256["riccati_launches"],
              "share_of_data_round": mn_b256["share_of_data_round"],
              **{k: mpcnet_checks["b256"][k] for k in shape_keys + ("kernel_ms_queued",)}},
+        ] + [
+            {"path": f"sqp_phase_profile (N = {r['N']})", "launches": r["riccati_launches"],
+             "riccati_seq_ms": r["report_ms"]["riccati_seq"],
+             **{k: (at_loop if r["N"] == ENTRY_N else at_b1)[k]
+                for k in shape_keys + ("kernel_ms_queued",)}}
+            for r in prof
+        ] + [
+            {"path": "entry_step", "launches": ent["riccati_launches"],
+             "launches_per_solve": ent["riccati_launches"],
+             "single_sweep_ms": at_loop["single_sweep_ms"],
+             **{k: at_loop[k] for k in shape_keys + ("kernel_ms_queued",)}},
+            {"path": "dryrun_multichip (scenario chunks)", "launches": dry["riccati_launches"],
+             **{k: at_dry[k] for k in shape_keys + ("kernel_ms_queued",)}},
         ],
         # Shapes held in kernel_check that no lane runs.
         "checks": [{k: ls_checks[LS_BATCH_SHAPE][k] for k in shape_keys + ("kernel_ms_queued",)}],
@@ -4642,6 +5042,30 @@ def main() -> int:
                                       "shared_bytes", "blocks_per_sm", "waves")}
                    for c in ct_checks + [ct_zoo]],
         "wave_check": ct_checks[0]["wave_check"],
+    }, {
+        "name": "lqr_backward_parallel", "route": "torch",
+        "source": "ocs2_tpu_torch/ops/riccati.py",
+        # XLA code in the JAX package (the associative-scan Riccati), not a
+        # Pallas kernel; torch ops in the port.
+        "replaces": "ocs2_tpu/ops/riccati.py:489",
+        "launches": pr_b1["k7_calls"] + pr_ballbot["k7_calls"] + sum(r["k7_calls"] for r in prof),
+        "max_abs_err": max(c["max_abs_err"] for c in k7_checks),
+        "shape": dict(zip(("nx", "nu", "B", "N"), K7_SHAPES[0])),
+        "ms": k7_checks[0]["ms"], "plain_ms": k7_checks[0]["plain_ms"],
+        "bound_ms": k7_checks[0]["bound_ms"], "bound_by": k7_checks[0]["bound_by"],
+        "library_ms": None,
+        "paths": [
+            {"path": "legged_parallel_riccati_b1", "launches": pr_b1["k7_calls"],
+             "seconds_per_solve": pr_b1["seconds_per_solve"]},
+            {"path": "ballbot_ilqr_parallel_b4096", "launches": pr_ballbot["k7_calls"],
+             "solves_per_s": pr_ballbot["solves_per_s"]},
+        ] + [{"path": f"sqp_phase_profile (N = {r['N']})", "launches": r["k7_calls"],
+              "riccati_parallel_ms": r["report_ms"]["riccati_parallel"]} for r in prof],
+        "checks": [{k: c[k] for k in ("nx", "nu", "B", "N", "ms", "ms_queued", "k1_ms",
+                                      "k7_over_k1", "launches_per_call", "plain_ms", "bound_ms",
+                                      "bound_by", "bound_term", "max_abs_err",
+                                      "jax_k7_vs_sequential_max_abs")}
+                   for c in k7_checks],
     }]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

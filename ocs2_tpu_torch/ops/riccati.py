@@ -1,8 +1,8 @@
 """Time-varying LQR via the discrete Riccati recursion.
 
-Counterpart of ``ocs2_tpu/ops/riccati.py`` (sequential paths, the forward
-pass and the Hessian correction ``convexify``; the associative-scan
-``lqr_backward_parallel`` is not ported yet).
+Counterpart of ``ocs2_tpu/ops/riccati.py``: the sequential paths, the
+associative-scan ``lqr_backward_parallel``, the forward pass and the Hessian
+correction ``convexify``.
 
 Problem (increments around the nominal trajectory):
     min  sum_k [ q_k + qx_k'dx + qu_k'du + 1/2 dx'Qxx dx + du'Qux dx
@@ -24,6 +24,12 @@ Three backward passes share one recursion:
   kernel: strict pivots for a batch of one (as the reference's un-vmapped
   solve fails), clamped pivots for a larger batch.  Tensors on the CPU go
   through the single-scenario sweep (a batch of one) or the plain version.
+
+The parallel path, ``lqr_backward_parallel``, reformulates the recursion as
+an associative operator over conditional value functions (the parallel LQT
+elements of Särkkä & García-Fernández, "Temporal Parallelization of Bayesian
+Smoothers") and scans it in O(log N) depth: torch ops on the whole batch, no
+hand-written kernel.
 """
 from __future__ import annotations
 
@@ -66,13 +72,14 @@ class LqrCoeffs(NamedTuple):
 
 
 def _solve_psd(M: Tensor, rhs: Tensor) -> Tensor:
-    """Solve M z = rhs for symmetric positive-definite M via Cholesky; NaN
-    where M is not positive definite."""
+    """Solve M z = rhs for symmetric positive-definite M [..., n, n] via
+    Cholesky, rhs [..., n] or [..., n, m]; NaN in every entry of an M that is
+    not positive definite (as the JAX package's ``cho_factor`` gives)."""
     chol, info = torch.linalg.cholesky_ex(M)
-    vec = rhs.ndim == 1
-    z = torch.cholesky_solve(rhs[:, None] if vec else rhs, chol)
-    z = torch.where(info != 0, torch.full_like(z, float("nan")), z)
-    return z[:, 0] if vec else z
+    vec = rhs.ndim == M.ndim - 1
+    z = torch.cholesky_solve(rhs.unsqueeze(-1) if vec else rhs, chol)
+    z = torch.where((info != 0)[..., None, None], torch.full_like(z, float("nan")), z)
+    return z.squeeze(-1) if vec else z
 
 
 def convexify_stage_hessians(
@@ -341,6 +348,156 @@ def lqr_backward(
 
         return lqr_backward_cuda(coeffs, reg, strict=batch == 1)
     return _lqr_backward_batched(coeffs, reg)
+
+
+# -- parallel (associative-scan) backward pass --------------------------------
+
+# Calls of lqr_backward_parallel, for a caller that shows a path went through
+# it (as riccati_cuda.launch_count does for the kernel).
+parallel_calls = 0
+
+
+def _mv(m: Tensor, v: Tensor) -> Tensor:
+    return (m @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def _eliminate_cross_terms(coeffs: LqrCoeffs, reg: Tensor):
+    """Complete the square in u: du = dv - Quu^{-1}(Qux dx + qu), which
+    removes the cross term and the term linear in u so that the stages fit
+    the parallel element form.  Leaves [B, N, ...], reg [B]."""
+    nu = coeffs.B.shape[-1]
+    eye_u = torch.eye(nu, dtype=coeffs.B.dtype, device=coeffs.B.device)
+    quu_r = coeffs.Quu + reg[:, None, None, None] * eye_u
+    w = _solve_psd(quu_r, torch.cat([coeffs.Qux, coeffs.qu.unsqueeze(-1)], dim=-1))
+    w_ux, w_u = w[..., :-1], w[..., -1]  # Quu^{-1} Qux, Quu^{-1} qu
+    qux_t = coeffs.Qux.transpose(-1, -2)
+    a_t = coeffs.A - coeffs.B @ w_ux
+    b_t = coeffs.b - _mv(coeffs.B, w_u)
+    qxx_t = symmetrize(coeffs.Qxx - qux_t @ w_ux)
+    qx_t = coeffs.qx - _mv(qux_t, w_u)
+    return a_t, b_t, qxx_t, qx_t, quu_r
+
+
+class _Element(NamedTuple):
+    """Conditional value function of a span of nodes (Särkkä et al.): leaves
+    [B, M, ...]."""
+
+    F: Tensor  # [nx, nx]
+    c: Tensor  # [nx]
+    C: Tensor  # [nx, nx]
+    eta: Tensor  # [nx]
+    J: Tensor  # [nx, nx]
+
+
+def _combine(later: _Element, earlier: _Element) -> _Element:
+    """Associative combination of conditional value functions, elementwise
+    over the leading dims.  In the reversed scan the first argument is the
+    already-combined later span and the second the earlier one; the
+    composition is earlier-then-later.  Each of the two systems, I + C1 J2
+    and I + J2 C1, is LU-factored once (partial pivoting, as
+    ``jnp.linalg.solve``) and solved for all its right-hand sides at once;
+    a singular one gives inf / NaN, not an error."""
+    a, b = earlier, later
+    nx = a.F.shape[-1]
+    eye = torch.eye(nx, dtype=a.F.dtype, device=a.F.device)
+    m = eye + a.C @ b.J  # I + C1 J2
+    lu_m, piv_m, _ = torch.linalg.lu_factor_ex(m)
+    rhs_m = torch.cat([a.F, (a.c + _mv(a.C, b.eta)).unsqueeze(-1), a.C], dim=-1)
+    sol_m = torch.linalg.lu_solve(lu_m, piv_m, rhs_m)
+    m_inv_f1, m_inv_rhs, m_inv_c1 = sol_m[..., :nx], sol_m[..., nx], sol_m[..., nx + 1:]
+    n = eye + b.J @ a.C  # I + J2 C1
+    lu_n, piv_n, _ = torch.linalg.lu_factor_ex(n)
+    rhs_n = torch.cat([(b.eta - _mv(b.J, a.c)).unsqueeze(-1), b.J @ a.F], dim=-1)
+    sol_n = torch.linalg.lu_solve(lu_n, piv_n, rhs_n)
+    n_inv_eta, n_inv_j2f1 = sol_n[..., 0], sol_n[..., 1:]
+    f1_t = a.F.transpose(-1, -2)
+    return _Element(
+        F=b.F @ m_inv_f1,
+        c=_mv(b.F, m_inv_rhs) + b.c,
+        C=symmetrize(b.F @ m_inv_c1 @ b.F.transpose(-1, -2) + b.C),
+        eta=_mv(f1_t, n_inv_eta) + a.eta,
+        J=symmetrize(f1_t @ n_inv_j2f1 + a.J),
+    )
+
+
+def _interleave(even: Tensor, odd: Tensor) -> Tensor:
+    """[even0, odd0, even1, odd1, ...] along dim 1; ``even`` is as long as
+    ``odd`` or one longer."""
+    k = odd.shape[1]
+    pairs = torch.stack([even[:, :k], odd], dim=2).flatten(1, 2)
+    return torch.cat([pairs, even[:, k:]], dim=1) if even.shape[1] > k else pairs
+
+
+def _scan(elems: _Element) -> _Element:
+    """Inclusive scan of ``elems`` along dim 1 with ``_combine(first,
+    second)``, by the odd/even recursion of ``jax.lax.associative_scan``:
+    combine adjacent pairs, scan the pairs, then fix up the even positions;
+    about 2 log2(M) combines, each over the whole batch."""
+    num = elems.F.shape[1]
+    if num < 2:
+        return elems
+    reduced = _combine(
+        _Element(*(e[:, 0:num - 1:2] for e in elems)), _Element(*(e[:, 1::2] for e in elems)))
+    odd = _scan(reduced)
+    rest = _Element(*(e[:, 2::2] for e in elems))
+    if num % 2 == 0:
+        even = _combine(_Element(*(e[:, :-1] for e in odd)), rest)
+    else:
+        even = _combine(odd, rest)
+    return _Element(*(
+        _interleave(torch.cat([e[:, :1], r], dim=1), o)
+        for e, r, o in zip(elems, even, odd)
+    ))
+
+
+def lqr_backward_parallel(coeffs: LqrCoeffs, reg=0.0) -> LqrSolution:
+    """Associative-scan Riccati backward pass of a batch, O(log N) depth:
+    coeffs leaves [B, N, ...], reg [B] (or scalar); fields of the result
+    have a leading [B], and dv1, dv2 are summed over the nodes of each
+    scenario.  Exact: the same value function and gains as ``lqr_backward``
+    up to rounding.  The stage solves with ``Quu + reg I`` give NaN where
+    that is not positive definite, as the JAX package's do.  Torch ops on
+    either device; no kernel."""
+    global parallel_calls
+    parallel_calls += 1
+    batch, n, nx = coeffs.b.shape
+    dt, dev = coeffs.b.dtype, coeffs.b.device
+    reg = torch.as_tensor(reg, dtype=dt, device=dev).expand(batch)
+    a_t, b_t, qxx_t, qx_t, quu_r = _eliminate_cross_terms(coeffs, reg)
+    b_tr = coeffs.B.transpose(-1, -2)
+    c_stage = coeffs.B @ _solve_psd(quu_r, b_tr)
+
+    # Stage elements [0..N-1], then the terminal element, which pins the
+    # value function to the terminal quadratic; the scan runs from the end.
+    zeros = torch.zeros((batch, 1, nx, nx), dtype=dt, device=dev)
+    elems = _Element(
+        F=torch.cat([a_t, zeros], dim=1),
+        c=torch.cat([b_t, zeros[..., 0]], dim=1),
+        C=torch.cat([c_stage, zeros], dim=1),
+        eta=torch.cat([-qx_t, -coeffs.qf[:, None]], dim=1),
+        J=torch.cat([qxx_t, coeffs.Qf[:, None]], dim=1),
+    )
+    scanned = _scan(_Element(*(e.flip(1) for e in elems)))
+    value_S = scanned.J.flip(1)  # [B, N+1, nx, nx]
+    value_s = -scanned.eta.flip(1)
+
+    # Gains of every node from V_{k+1}, all at once: no recursion left.
+    s_next, sv_next = value_S[:, 1:], value_s[:, 1:]
+    sv = sv_next + _mv(s_next, coeffs.b)
+    b_s = b_tr @ s_next
+    quu_hat = quu_r + b_s @ coeffs.B
+    qux_hat = coeffs.Qux + b_s @ coeffs.A
+    qu_hat = coeffs.qu + _mv(b_tr, sv)
+    k = -_solve_psd(quu_hat, torch.cat([qux_hat, qu_hat.unsqueeze(-1)], dim=-1))
+    kk, kf = k[..., :-1], k[..., -1]
+    return LqrSolution(
+        gains=kk,
+        kff=kf,
+        value_S=value_S,
+        value_s=value_s,
+        dv1=torch.sum(kf * qu_hat, dim=(1, 2)),
+        dv2=torch.sum(0.5 * kf * _mv(quu_hat, kf), dim=(1, 2)),
+    )
 
 
 def lqr_forward(coeffs: LqrCoeffs, sol: LqrSolution, dx0: Tensor):

@@ -20,8 +20,9 @@ The sweep is, with ``algorithm="ilqr"``, the discrete Riccati recursion
 the card) on the discretized transitions and, with ``algorithm="slq"``, the
 continuous-time Riccati ODE (``ops/riccati_ct.slq_backward``: the CUDA kernel
 of ``riccati_ct_backward.cu`` on the card) on the continuous-time LQ data of
-``approx.approximate_lq_ct``.  The associative-scan Riccati
-(``parallel_riccati``) raises ``NotImplementedError``.
+``approx.approximate_lq_ct``.  ``parallel_riccati=True`` takes the
+associative-scan Riccati (``ops/riccati.lqr_backward_parallel``, torch ops)
+for iLQR's sweep; SLQ ignores it, as the JAX package's SLQ does.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from ..ops.riccati import (
     convexify,
     convexify_stage_hessians,
     lqr_backward,
+    lqr_backward_parallel,
 )
 from ..ops.riccati_ct import slq_backward
 from .al import AlState, augment_problem
@@ -178,11 +180,6 @@ def solve(
     PyTorch version."""
     if settings.algorithm not in ("ilqr", "slq"):
         raise ValueError(f"unknown algorithm {settings.algorithm!r}; 'ilqr' or 'slq'")
-    if settings.parallel_riccati:
-        raise NotImplementedError(
-            "parallel_riccati=True: the associative-scan Riccati "
-            "(lqr_backward_parallel) belongs to a later slice of the port"
-        )
     if not isinstance(params, dict):
         raise TypeError(f"params must be a dict, got {type(params).__name__}")
     f32 = torch.float32
@@ -245,6 +242,8 @@ def solve(
         coeffs = _lq_to_coeffs(lq)
         if do_convexify:
             coeffs = convexify(coeffs, method=settings.hessian_correction)
+        if settings.parallel_riccati:
+            return lqr_backward_parallel(coeffs, reg)
         return lqr_backward(coeffs, reg, force_plain=force_plain_riccati)
 
     def iteration(c: _Carry):

@@ -21,8 +21,9 @@ slack/dual blocks into the per-node LQ stage data,
 after which the equality-constrained QP is solved by the Riccati recursion
 (``ops/riccati.lqr_backward``: the CUDA kernel on the card, with strict pivots
 at B = 1 and clamped ones for a batch), with the state-input equalities
-removed by null-space projection as in the SQP solver.  The slack and dual
-Newton directions are recovered per node,
+removed by null-space projection as in the SQP solver (with
+``parallel_riccati=True``, by the associative-scan ``lqr_backward_parallel``
+instead).  The slack and dual Newton directions are recovered per node,
 
     ds = H dz + (h - s),      dv = mu/s - v - Sigma * ds,
 
@@ -50,7 +51,13 @@ from ..oc.metrics import _rho_like as _bcast
 from ..oc.problem import OptimalControlProblem
 from ..oc.time_discretization import TimeGrid
 from ..ops.projection import project_lqr_coeffs, remap_projected_gain, remap_projected_input
-from ..ops.riccati import LqrCoeffs, convexify, lqr_backward, lqr_forward
+from ..ops.riccati import (
+    LqrCoeffs,
+    convexify,
+    lqr_backward,
+    lqr_backward_parallel,
+    lqr_forward,
+)
 from .al import AlState, augment_problem
 from .ddp import _where, _where_tree
 from .sqp import _defects
@@ -276,11 +283,6 @@ def solve(
     those of ``sqp.solve``: ``force_plain_riccati`` routes the backward sweep
     through the kernel's plain PyTorch version, ``force_single_riccati``
     (B = 1) through the single-scenario sweep."""
-    if settings.parallel_riccati:
-        raise NotImplementedError(
-            "parallel_riccati=True: the associative-scan Riccati "
-            "(lqr_backward_parallel) belongs to a later slice of the port"
-        )
     if not isinstance(params, dict):
         raise TypeError(f"params must be a dict, got {type(params).__name__}")
     f32 = torch.float32
@@ -374,8 +376,12 @@ def solve(
 
         def solve_qp(qp: LqrCoeffs):
             qp = LqrCoeffs(*(leaf.contiguous() for leaf in qp))
-            sol = lqr_backward(
-                qp, reg0, force_plain=force_plain_riccati, force_single=force_single_riccati)
+            if settings.parallel_riccati:
+                # The JAX package's IPM passes no regularization to either sweep.
+                sol = lqr_backward_parallel(qp)
+            else:
+                sol = lqr_backward(
+                    qp, reg0, force_plain=force_plain_riccati, force_single=force_single_riccati)
             dxs, dus_r = lqr_forward(qp, sol, dx0)
             return dxs, dus_r, sol
 

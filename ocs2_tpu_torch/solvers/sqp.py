@@ -28,8 +28,12 @@ the first-order PIPG iteration (``ops/pipg.py``; the SLP configuration,
 ``solvers/slp.py``).  PIPG gives no value function and no feedback: the
 gains are zero (remapped through the projection, where there is one) and
 ``value_S`` / ``value_s`` are NaN, so that a consumer of the value function
-fails visibly.  The horizon-sharded PIPG (``qp_solver="pipg_sharded"``) and
-the associative-scan Riccati raise ``NotImplementedError``.
+fails visibly.  ``qp_solver="pipg_sharded"`` runs the same PIPG with the
+stage axis split over the shards of ``time_mesh``
+(``parallel/horizon.py``), and ``parallel_riccati=True`` replaces the
+sequential sweep by the associative-scan Riccati
+(``ops/riccati.lqr_backward_parallel``, torch ops; the CUDA kernel is then
+not launched).
 """
 from __future__ import annotations
 
@@ -46,7 +50,14 @@ from ..oc.problem import OptimalControlProblem
 from ..oc.time_discretization import TimeGrid
 from ..ops.pipg import PipgSettings, pipg_solve, ruiz_equilibrate
 from ..ops.projection import project_lqr_coeffs, remap_projected_gain, remap_projected_input
-from ..ops.riccati import LqrCoeffs, convexify, lqr_backward, lqr_forward
+from ..ops.riccati import (
+    LqrCoeffs,
+    convexify,
+    lqr_backward,
+    lqr_backward_parallel,
+    lqr_forward,
+)
+from ..parallel.horizon import pipg_solve_horizon_sharded
 from .al import AlState, augment_problem
 from .ddp import _where, _where_tree
 
@@ -95,11 +106,16 @@ class SqpSettings:
     outer_update_every: int = 10
     parallel_riccati: bool = False
     use_feedback_policy: bool = True
-    # Inner QP backend: "riccati" (exact) or "pipg" (first-order, the SLP
-    # configuration); "pipg_sharded" is not ported.
+    # Inner QP backend: "riccati" (exact), "pipg" (first-order, the SLP
+    # configuration) or "pipg_sharded" (PIPG with the horizon split over
+    # `time_mesh`, parallel/horizon.py).
     qp_solver: str = "riccati"
     pipg_iterations: int = 2000
     ruiz_iterations: int = 5
+    # Mesh (parallel/mesh.Mesh) with a "time" axis for
+    # qp_solver="pipg_sharded"; the horizon must divide by the axis size.
+    time_mesh: Any = None
+    time_mesh_axis: str = "time"
 
 
 class IterationLog(NamedTuple):
@@ -187,19 +203,10 @@ def solve(
     must live there.  Two test hooks route the backward sweep away from the
     CUDA kernel: ``force_plain_riccati`` through its plain PyTorch version,
     ``force_single_riccati`` (B = 1) through the single-scenario sweep."""
-    if settings.qp_solver == "pipg_sharded":
-        raise NotImplementedError(
-            "qp_solver='pipg_sharded': the horizon-sharded PIPG "
-            "(parallel/horizon.py) belongs to a later slice of the port; "
-            "'riccati' and 'pipg' are available"
-        )
-    if settings.qp_solver not in ("riccati", "pipg"):
+    if settings.qp_solver not in ("riccati", "pipg", "pipg_sharded"):
         raise ValueError(f"unknown qp_solver {settings.qp_solver!r}")
-    if settings.parallel_riccati:
-        raise NotImplementedError(
-            "parallel_riccati=True: the associative-scan Riccati "
-            "(lqr_backward_parallel) belongs to a later slice of the port"
-        )
+    if settings.qp_solver == "pipg_sharded" and settings.time_mesh is None:
+        raise ValueError("qp_solver='pipg_sharded' needs SqpSettings.time_mesh")
     if not isinstance(params, dict):
         raise TypeError(f"params must be a dict, got {type(params).__name__}")
     f32 = torch.float32
@@ -287,9 +294,14 @@ def solve(
 
         def solve_qp(qp: LqrCoeffs):
             """(dxs, dus, gains, value_S, value_s) of the inner QP."""
-            if settings.qp_solver == "pipg":
+            if settings.qp_solver in ("pipg", "pipg_sharded"):
                 scaled, scal = ruiz_equilibrate(qp, settings.ruiz_iterations)
-                psol = pipg_solve(scaled, PipgSettings(num_iterations=settings.pipg_iterations))
+                pipg_settings = PipgSettings(num_iterations=settings.pipg_iterations)
+                if settings.qp_solver == "pipg_sharded":
+                    psol = pipg_solve_horizon_sharded(
+                        scaled, settings.time_mesh, pipg_settings, axis=settings.time_mesh_axis)
+                else:
+                    psol = pipg_solve(scaled, pipg_settings)
                 nv = qp.B.shape[-1]
                 nan = float("nan")
                 return (
@@ -299,9 +311,13 @@ def solve(
                     torch.full((batch, n + 1, nx), nan, dtype=f32, device=dev),
                 )
             qp = LqrCoeffs(*(leaf.contiguous() for leaf in qp))
-            sol = lqr_backward(
-                qp, c.reg, force_plain=force_plain_riccati, force_single=force_single_riccati
-            )
+            if settings.parallel_riccati:
+                sol = lqr_backward_parallel(qp, c.reg)
+            else:
+                sol = lqr_backward(
+                    qp, c.reg, force_plain=force_plain_riccati,
+                    force_single=force_single_riccati,
+                )
             dxs, dus_r = lqr_forward(qp, sol, dx0)
             return dxs, dus_r, sol.gains, sol.value_S, sol.value_s
 

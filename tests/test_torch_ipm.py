@@ -418,14 +418,35 @@ def test_single_and_plain_riccati_routes_agree_at_batch_one(kind):
     np.testing.assert_allclose(a.us.numpy(), b.us.numpy(), atol=1e-4, rtol=1e-5)
 
 
-def test_force_single_riccati_refuses_a_batch_and_parallel_riccati_raises():
+def test_force_single_riccati_refuses_a_batch():
     x0s = np.asarray(DI_X0["bounds"], np.float32)
     one = _solve_di("bounds", x0s[:1], force_single_riccati=True)
     np.testing.assert_array_equal(one.us.numpy(), _solve_di("bounds", x0s[:1]).us.numpy())
     with pytest.raises(ValueError, match="batch of one"):
         _solve_di("bounds", x0s, force_single_riccati=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        _solve_di("bounds", x0s[:1], settings=dict(parallel_riccati=True))
+
+
+def _jax_di_parallel_riccati():
+    x0 = np.asarray(DI_X0["bounds"], np.float32)
+    one = lambda x: jipm.solve(  # noqa: E731
+        jax_di_problem("bounds"), juniform_grid(0.0, 2.0, DI_N), x, jdi.make_params(),
+        settings=jipm.IpmSettings(**DI_SETTINGS, parallel_riccati=True))
+    return dict(x0=x0, sol=jax.jit(jax.vmap(one))(jnp.asarray(x0)))
+
+
+def test_parallel_riccati_matches_the_reference():
+    """The box fixture's three scenarios with the associative-scan Riccati
+    against ``jax.vmap`` of the JAX package's solve with it: iterations,
+    ``xs`` / ``us`` (1e-3 + 1e-4 |value|) and mu as the cases above."""
+    rec = RECORDS["di_bounds_b3_parallel_riccati"]
+    x0s = np.asarray(DI_X0["bounds"], np.float32)
+    np.testing.assert_array_equal(rec["x0"], x0s)  # the record solved these starts
+    mine, ref = _solve_di("bounds", x0s, settings=dict(parallel_riccati=True)), rec["sol"]
+    np.testing.assert_array_equal(mine.iterations.numpy(), ref.iterations)
+    np.testing.assert_array_equal(mine.converged.numpy(), ref.converged)
+    for field in ("xs", "us"):
+        np.testing.assert_allclose(getattr(mine, field).numpy(), getattr(ref, field),
+                                   atol=1e-3, rtol=1e-4, err_msg=field)
 
 
 def test_zero_width_families_take_no_part():
@@ -460,6 +481,7 @@ JAX_RECORDS = dict(
      for name, (_, jax_fn, kind, batch) in CASES.items()},
     legged_trot_zero_start=lambda: _jax_legged_solve_of("trot", *_zero_start_inputs()),
     mpc_closed_loop=_jax_mpc_closed_loop,
+    di_bounds_b3_parallel_riccati=_jax_di_parallel_riccati,
 )
 RECORDS = Records(__file__)
 

@@ -260,12 +260,18 @@ def test_mpc_with_slq_settings_matches_jax():
     assert mine.solve_timer.count == 3
 
 
-def test_parallel_riccati_still_raises_with_slq():
-    with pytest.raises(NotImplementedError, match="slice"):
-        ddp.solve(ballbot.make_problem(device="cpu"), uniform_grid(0.0, 1.0, 4), _x0s(1),
-                  ballbot.make_params(device="cpu"),
-                  settings=ddp.DdpSettings(algorithm="slq", parallel_riccati=True),
-                  device="cpu")
+def test_slq_ignores_parallel_riccati():
+    """SLQ's sweep is the Riccati ODE whatever ``parallel_riccati`` says (the
+    JAX package's SLQ returns before it reads the flag): the same solution,
+    to the bit, with and without it."""
+    solve = lambda **kw: ddp.solve(  # noqa: E731
+        ballbot.make_problem(device="cpu"), uniform_grid(0.0, 1.0, 4), _x0s(2),
+        ballbot.make_params(device="cpu"),
+        settings=ddp.DdpSettings(algorithm="slq", max_iterations=3, **kw), device="cpu")
+    a, b = solve(), solve(parallel_riccati=True)
+    np.testing.assert_array_equal(b.iterations.numpy(), a.iterations.numpy())
+    for field in ("xs", "us", "gains"):
+        np.testing.assert_array_equal(getattr(b, field).numpy(), getattr(a, field).numpy())
 
 
 def test_slq_with_constraints_reads_the_last_multiplier_row_at_node_n():

@@ -12,7 +12,8 @@ plain version of its kernel: float32 reassociation, hence tolerances).
 ``iterations`` and ``converged`` equal, ``xs``/``us`` within
 1e-3 + 1e-4 |value|, history step sizes equal.
 
-The JAX package's eight solves (``JAX_RECORDS``; XLA takes minutes to
+The JAX package's ten solves (``JAX_RECORDS``, the last two with the
+associative-scan Riccati and the horizon-sharded PIPG; XLA takes minutes to
 compile the legged ones) are stored in ``tests/torch_data/test_torch_sqp_jax.npz``
 by ``tools/torch_test_records.py --record test_torch_sqp``, with the
 starts they solved from; the port solves live.
@@ -136,8 +137,36 @@ CASES = {
     "legged_trot_b1": (_legged_case, _jax_legged_case, "trot", 1),
     "legged_trot_b3": (_legged_case, _jax_legged_case, "trot", 3),
 }
-JAX_RECORDS = {name: functools.partial(jax_fn, kind, batch)
-               for name, (_, jax_fn, kind, batch) in CASES.items()}
+# The solver options that split the work: the associative-scan Riccati and
+# the horizon-sharded PIPG (on TOY_SHARDS shards of the CPU: TOY_N divides).
+TOY_SHARDS = 4
+OPTION_CASES = {
+    "parallel_riccati": (dict(parallel_riccati=True), 3),
+    "pipg_sharded": (dict(qp_solver="pipg_sharded", pipg_iterations=1000), 1),
+}
+
+
+def _jax_toy_option_case(option):
+    from jax.sharding import Mesh
+
+    kw, batch = OPTION_CASES[option]
+    if option == "pipg_sharded":
+        kw = dict(kw, time_mesh=Mesh(np.asarray(jax.devices()[:TOY_SHARDS]), ("time",)))
+    x0 = _toy_x0(batch, TOY_SEEDS["projected"])
+    one = lambda x: jsqp.solve(  # noqa: E731
+        toy.jax_problem(2), juniform_grid(0.0, 1.0, TOY_N), x, toy.jax_params(2),
+        settings=jsqp.SqpSettings(**dict(TOY_SETTINGS["projected"], **kw)))
+    ref = jax.jit(one)(jnp.asarray(x0[0])) if batch == 1 else jax.jit(jax.vmap(one))(
+        jnp.asarray(x0))
+    return dict(x0=x0, sol=ref)
+
+
+JAX_RECORDS = dict(
+    {name: functools.partial(jax_fn, kind, batch)
+     for name, (_, jax_fn, kind, batch) in CASES.items()},
+    **{f"toy_projected_{option}": functools.partial(_jax_toy_option_case, option)
+       for option in OPTION_CASES},
+)
 RECORDS = Records(__file__)
 
 
@@ -352,12 +381,27 @@ def test_initial_guesses_broadcast_and_pin_the_first_state():
     np.testing.assert_array_equal(a.xs[:, 0].numpy(), x0s)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"qp_solver": "pipg_sharded"}, {"parallel_riccati": True},
-])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="slice"):
-        _solve_toy(_toy_x0(1), settings=kwargs)
+@pytest.mark.parametrize("option", list(OPTION_CASES))
+def test_parallel_options_match_the_reference(option):
+    """The projected toy with the associative-scan Riccati (a batch of three,
+    against ``jax.vmap``) and with the horizon-sharded PIPG (4 shards on the
+    CPU, against the JAX package's solve on a 4-device time mesh of the CPU):
+    iterations, ``xs`` and ``us`` as in the solves above (1e-3 + 1e-4
+    |value|)."""
+    from ocs2_tpu_torch.parallel.mesh import make_mesh
+
+    kw, batch = OPTION_CASES[option]
+    if option == "pipg_sharded":
+        kw = dict(kw, time_mesh=make_mesh(["cpu"] * TOY_SHARDS, "time"))
+    x0 = _toy_x0(batch, TOY_SEEDS["projected"])
+    mine = _solve_toy(x0 if batch > 1 else x0[0], settings=kw)
+    rec = RECORDS[f"toy_projected_{option}"]
+    np.testing.assert_array_equal(rec["x0"], x0)  # the record solved these starts
+    ref = rec["sol"] if batch > 1 else jax.tree.map(lambda a: a[None], rec["sol"])
+    np.testing.assert_array_equal(mine.iterations.numpy(), ref.iterations)
+    for field in ("xs", "us"):
+        np.testing.assert_allclose(getattr(mine, field).numpy(), getattr(ref, field),
+                                   atol=1e-3, rtol=1e-4, err_msg=field)
 
 
 def test_qp_solver_pipg_solves_the_projected_toy():

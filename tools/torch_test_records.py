@@ -42,6 +42,10 @@ MODULES = [
     "test_torch_ddp_ballbot",
     "test_torch_urdf",
     "test_torch_rollout_metrics",
+    "test_torch_riccati_parallel",
+    "test_torch_parallel",
+    "test_torch_profiling",
+    "test_torch_entry",
 ]
 
 
@@ -56,6 +60,11 @@ def main() -> int:
 
     import importlib
 
+    # The tests' CPU of eight devices (tests/conftest.py), for the records
+    # that run on a mesh.
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
