@@ -1,0 +1,14 @@
+"""Carry update (the AL outer update, the convergence test, the log, the
+carry merge and the history write): device milliseconds per SQP loop
+iteration in the span ``sqp.update``, idle time on the stream inside it
+included.
+
+The mean over the span's occurrences, one an iteration, read from the
+program's recorder (``ocs2_tpu_torch.utils.timers.SPANS``); None where the
+program has no recorder or recorded no such span."""
+import sys
+
+
+def read(obs):
+    spans = getattr(sys.modules.get("ocs2_tpu_torch.utils.timers"), "SPANS", None)
+    return None if spans is None else spans.mean_ms("sqp.update", "device")

@@ -34,6 +34,10 @@ stage axis split over the shards of ``time_mesh``
 sequential sweep by the associative-scan Riccati
 (``ops/riccati.lqr_backward_parallel``, torch ops; the CUDA kernel is then
 not launched).
+
+While recording is on (``utils/timers``: under ``torch.profiler`` or inside
+``timers.recording()``), the loop marks its phases as spans, one of each an
+iteration, on the host's clock, the stream's and the profiler's timeline.
 """
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ from ..ops.riccati import (
     lqr_forward,
 )
 from ..parallel.horizon import pipg_solve_horizon_sharded
+from ..utils.timers import SPANS
 from .al import AlState, augment_problem
 from .ddp import _where, _where_tree
 
@@ -268,7 +273,10 @@ def solve(
     reg_eye = settings.hessian_reg * torch.eye(nu, dtype=f32, device=dev)
     dx0 = torch.zeros((batch, nx), dtype=f32, device=dev)
 
+    spans = SPANS.solve("sqp.solve", dev)
+
     def iteration(c: _Carry):
+        spans.mark("sqp.approx", synced=True)
         p_al = dict(params, al=c.al)
         # Transcription: mapped LQ approximation with defects.
         lq = approximate_lq(
@@ -294,6 +302,7 @@ def solve(
 
         def solve_qp(qp: LqrCoeffs):
             """(dxs, dus, gains, value_S, value_s) of the inner QP."""
+            spans.mark("sqp.riccati")
             if settings.qp_solver in ("pipg", "pipg_sharded"):
                 scaled, scal = ruiz_equilibrate(qp, settings.ruiz_iterations)
                 pipg_settings = PipgSettings(num_iterations=settings.pipg_iterations)
@@ -302,6 +311,7 @@ def solve(
                         scaled, settings.time_mesh, pipg_settings, axis=settings.time_mesh_axis)
                 else:
                     psol = pipg_solve(scaled, pipg_settings)
+                spans.mark("sqp.forward")
                 nv = qp.B.shape[-1]
                 nan = float("nan")
                 return (
@@ -318,10 +328,12 @@ def solve(
                     qp, c.reg, force_plain=force_plain_riccati,
                     force_single=force_single_riccati,
                 )
+            spans.mark("sqp.forward")
             dxs, dus_r = lqr_forward(qp, sol, dx0)
             return dxs, dus_r, sol.gains, sol.value_S, sol.value_s
 
         if project:
+            spans.mark("sqp.projection")
             reduced, proj = project_lqr_coeffs(
                 coeffs, lq.eq.f, lq.eq.dfdx, lq.eq.dfdu
             )
@@ -342,6 +354,7 @@ def solve(
         dus = _where(step_finite, dus, torch.zeros_like(dus))
 
         # Filter line search: all candidates [B, A, ...] in one evaluation.
+        spans.mark("sqp.line_search")
         a4 = alphas[None, :, None, None]
         xs_cand = c.xs[:, None] + a4 * dxs[:, None]
         us_cand = c.us[:, None] + a4 * dus[:, None]
@@ -389,6 +402,7 @@ def solve(
         merit_n = torch.where(any_ok, pick(merits), c.merit)
 
         # -- AL outer loop (LANCELOT schedule) --------------------------------
+        spans.mark("sqp.update")
         # Inner problem = minimize the AL merit at FIXED (lambda, rho); outer
         # updates fire only when the inner iteration is stationary (tiny
         # relative merit decrease, or a failed line search).  Growing rho per
@@ -477,9 +491,14 @@ def solve(
     # An active scenario has run exactly `i` iterations when the loop is at
     # index i (a finished one never becomes active again), so column i of the
     # history is the slot the reference writes at its own `it`.
+    # The phases of an iteration, marked in this order: sqp.host_read,
+    # sqp.approx, sqp.projection (when projecting), sqp.riccati, sqp.forward,
+    # sqp.line_search and sqp.update, which ends after the carry merge.
     for i in range(settings.max_iterations):
+        spans.mark("sqp.host_read", iteration=i)
         active = (carry.it < settings.max_iterations) & ~carry.done
         if not bool(active.any()):  # the one host read of the iteration
+            spans.drop()
             break
         new, log = iteration(carry)
         carry = _Carry(*(
@@ -488,6 +507,7 @@ def solve(
         ))
         for col, val in zip(history, log):
             col[:, i] = torch.where(active, val, col[:, i])
+    spans.end()
 
     metrics_f = eval_traj(carry.xs, carry.us)
     merit_f = al_merit(metrics_f, carry.al)

@@ -5,6 +5,8 @@ and timed in isolation, because a compiled solve cannot be timed inside; here
 the phases are eager calls, timed one by one on the same representative data
 (the initial guess), each call ending in a synchronise where there is a
 card.  The report keeps the JAX package's keys so that the two compare.
+It replays each phase alone on one scenario; the phases inside a batched
+solve are the spans that ``utils/timers`` records in ``sqp.solve``.
 
 Usage:
     from ocs2_tpu_torch.utils.profiling import profile_sqp_phases, format_report
