@@ -5,7 +5,13 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout, holds
 each against its plain PyTorch version on the card, then drives the port's
-main paths and checks that they went through the kernels:
+main paths and checks that they went through the kernels.  K10
+(``csrc/lq_srbd.cu``, the legged SRBD problem's whole LQ approximation) is
+held against the generic ``_approximate_lq_generic`` at (B, N) = (1, 100),
+(256, 100) and (4096, 100), every leaf of LQData, and timed beside its bytes
+bound; the legged SQP lanes below (the B = 1 tick, b256, the closed loop,
+the entry step) count its launches, one an SQP iteration with no generic
+call, and the IPM lanes (hard cone) count none.  The lanes:
 
 * ``ddp.solve`` (iLQR) on the ballbot problem, a batch of 4096 scenarios,
   32 intervals;
@@ -480,6 +486,137 @@ def main_path(torch, riccati_cuda):
 
 _, _, LEGGED_BATCH, LEGGED_N = LEGGED_SHAPE
 LEGGED_HORIZON = 1.0
+# K10's (B, N): the B = 1 tick and the closed loop, the b256 lane, and the
+# benchmark's legged-sqp-b4096 cell.
+K10_SHAPES = [(1, LEGGED_N), (LEGGED_BATCH, LEGGED_N), (4096, LEGGED_N)]
+
+
+def k10_inputs(torch, batch, n, seed):
+    """(grid, xs, us, params) of the legged trot problem at (B, N) on the
+    card, on the lanes' trot grid (jump intervals, both modes): scenario 0
+    at the stand with the weight-compensating forces, the others with
+    0.05 N(0, 1) on every state, 5 N(0, 1) on the forces and 0.5 N(0, 1) on
+    the joint velocities, and stance forces of 1-8 N on 30 % of the feet and
+    20-150 N on the rest, so that the cone rows fall on both sides of the
+    barrier's delta."""
+    from ocs2_tpu_torch.models.legged_robot import interface, model
+    from ocs2_tpu_torch.models.legged_robot.gait import GaitSchedule, trot_gait
+    from ocs2_tpu_torch.oc.time_discretization import make_time_grid
+
+    rng = np.random.default_rng(seed)
+    ms = GaitSchedule(trot_gait(0.7)).mode_schedule(0.0, LEGGED_HORIZON)
+    grid = make_time_grid(0.0, LEGGED_HORIZON, n, event_times=ms.event_times,
+                          mode_sequence=ms.mode_sequence)
+    x_stand = np.asarray(model.default_state("cpu"))
+    u_stand = np.asarray(model.weight_compensating_input(np.ones(4, np.float32), "cpu"))
+    x = x_stand + 0.05 * rng.standard_normal((batch, n + 1, 24))
+    u = u_stand + np.concatenate([5.0 * rng.standard_normal((batch, n, 12)),
+                                  0.5 * rng.standard_normal((batch, n, 12))], axis=-1)
+    fz = u[..., 2:12:3]
+    u[..., 2:12:3] = np.where(rng.random(fz.shape) < 0.3, rng.uniform(1.0, 8.0, fz.shape),
+                              rng.uniform(20.0, 150.0, fz.shape))
+    x[0], u[0] = x_stand, u_stand
+    tensor = lambda v: torch.as_tensor(v.astype(np.float32), device=DEVICE)  # noqa: E731
+    return grid, tensor(x), tensor(u), interface.make_params(grid, device=DEVICE)
+
+
+def lq_leaves(lq):
+    return {f"{name}.{f}": v for name, rec in lq._asdict().items() if rec is not None
+            for f, v in rec._asdict().items() if v is not None}
+
+
+def check_k10(torch, shape, seed):
+    """K10 through the entry point the solvers call (``approximate_lq``)
+    against its plain version (``_approximate_lq_generic``) on the same
+    inputs: every leaf of LQData finite and within ATOL + RTOL |plain|.
+    Then its time through the wrapper (median of 20 calls) and queued (20
+    back to back), the plain version's (3 calls), and its bound: the bytes
+    this call reads (xs, us, the per-node inputs, the weights) and writes
+    (LQData) over the memory rate."""
+    import math
+
+    from ocs2_tpu_torch.models.legged_robot import interface
+    from ocs2_tpu_torch.oc import approx
+    from ocs2_tpu_torch.ops import lq_srbd_cuda
+
+    batch, n = shape
+    grid, xs, us, params = k10_inputs(torch, batch, n, seed)
+    problem = interface.make_problem(device=DEVICE)
+    k10 = lambda: approx.approximate_lq(problem, grid, xs, us, params, "rk2")  # noqa: E731
+    plain = lambda: approx._approximate_lq_generic(  # noqa: E731
+        problem, grid, xs, us, params, "rk2")
+    before, kernel_calls = lq_srbd_cuda.launch_count, approx.path_counts["kernel"]
+    out = lq_leaves(k10())
+    torch.cuda.synchronize()
+    assert lq_srbd_cuda.launch_count == before + 1, "approximate_lq did not launch K10"
+    assert approx.path_counts["kernel"] == kernel_calls + 1
+    assert lq_srbd_cuda.last_launch_dims == (batch, n), lq_srbd_cuda.last_launch_dims
+    ref = lq_leaves(plain())
+    max_err, worst, bad = 0.0, {}, []
+    if sorted(out) != sorted(ref):
+        bad.append(f"leaves {sorted(out)} != {sorted(ref)}")
+    for leaf in sorted(set(out) & set(ref)):
+        a, b = out[leaf], ref[leaf]
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            bad.append(leaf)
+            continue
+        err = (a - b).abs()
+        max_err = max(max_err, float(err.max()))
+        worst[leaf] = float((err / (ATOL + RTOL * b.abs())).max())
+        if worst[leaf] > 1.0:
+            bad.append(leaf)
+    del out, ref
+    nodes = problem.lq_kernel.node_inputs(grid.device(DEVICE), params)
+    read = sum(t.numel() * t.element_size()
+               for t in (xs, us, *nodes, *problem.lq_kernel.weights))
+    written = 4 * sum(math.prod(s) for s in lq_srbd_cuda.result_shapes(batch, n))
+    rec = {
+        "phase": "kernel_check", "kernel": "lq_srbd", "B": batch, "N": n, "nx": 24, "nu": 24,
+        "method": lq_srbd_cuda.METHOD,
+        "blocks": -(-batch * (n + 1) // lq_srbd_cuda.NODES_PER_BLOCK),
+        "threads": lq_srbd_cuda.NODES_PER_BLOCK * lq_srbd_cuda.THREADS_PER_NODE,
+        "max_abs_err": max_err, "worst_in_tolerance_units": worst, "rtol": RTOL, "atol": ATOL,
+        "ok": not bad,
+        "bytes": read + written, "bound_ms": 1e3 * (read + written) / PEAK_BYTES_PER_S,
+        "bound_by": "bytes",
+    }
+    if not bad:
+        rec["kernel_ms"] = time_ms(torch, k10, reps=20, warmup=3)
+        rec["kernel_ms_queued"] = time_ms_queued(torch, k10, reps=20, warmup=3)
+        rec["plain_ms"] = time_ms(torch, plain, reps=3, warmup=0)
+    emit(rec)
+    if bad:
+        raise SystemExit(f"lq_srbd disagrees with its plain version at {shape}: {bad}")
+    return rec
+
+
+def k10_reset():
+    """Zero K10's launch counter just before a lane; returns the path counts
+    of ``approximate_lq`` then, for k10_read."""
+    from ocs2_tpu_torch.oc import approx
+    from ocs2_tpu_torch.ops import lq_srbd_cuda
+
+    lq_srbd_cuda.launch_count, lq_srbd_cuda.last_launch_dims = 0, None
+    return dict(approx.path_counts)
+
+
+def k10_read(before):
+    """(K10's launches, the (B, N) of its last, the generic path's calls)
+    since k10_reset returned ``before``."""
+    from ocs2_tpu_torch.oc import approx
+    from ocs2_tpu_torch.ops import lq_srbd_cuda
+
+    return (lq_srbd_cuda.launch_count, lq_srbd_cuda.last_launch_dims,
+            approx.path_counts["generic"] - before["generic"])
+
+
+def k10_took_every_approximation(before, sweeps, dims, what):
+    """The lane's LQ approximations, one an SQP iteration (one a sweep), all
+    went through K10 at ``dims``; returns its launches."""
+    launches, last_dims, generic = k10_read(before)
+    assert launches == sweeps and generic == 0, (what, launches, sweeps, generic)
+    assert last_dims == dims, (what, last_dims)
+    return launches
 
 
 def legged_setup(torch):
@@ -546,6 +683,7 @@ def legged_tick_b1(torch, riccati_cuda, cfg, chains=B1_CHAINS, ticks_per_chain=B
     with strict pivots, one launch per SQP iteration."""
     riccati_cuda.launch_count = 0
     riccati_cuda.last_launch_dims = None
+    k10_before = k10_reset()
     t0 = time.perf_counter()
     cold = legged_solve(cfg, cfg["x0"], cfg["us_init"])  # also the warm-up
     torch.cuda.synchronize()
@@ -571,6 +709,7 @@ def legged_tick_b1(torch, riccati_cuda, cfg, chains=B1_CHAINS, ticks_per_chain=B
     sweeps_run = int(cold.iterations[0]) + sum(int(s.iterations[0]) for s in ticks)
     assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
     assert dims == (1, LEGGED_N, 24, 12), dims
+    k10_launches = k10_took_every_approximation(k10_before, sweeps_run, (1, LEGGED_N), "b1")
     # The cold tick once more through the single-scenario sweep of torch ops.
     single = legged_solve(cfg, cfg["x0"], cfg["us_init"], force_single_riccati=True)
     torch.cuda.synchronize()
@@ -591,6 +730,7 @@ def legged_tick_b1(torch, riccati_cuda, cfg, chains=B1_CHAINS, ticks_per_chain=B
         "equality_constraints_sse": float(last.equality_constraints_sse[0]),
         "worst_abs_foot_constraint": worst_g, "riccati_launches": launches,
         "kernel_dims": list(dims), "kernel_vs_single_sweep_solve_max_abs_err": err_single,
+        "k10_launches": k10_launches,
     }
     emit(rec)
     return rec, cold
@@ -667,6 +807,7 @@ def legged_tick_b256(torch, riccati_cuda, cfg, cold_b1, solves=TIMED_SOLVES):
     torch.cuda.reset_peak_memory_stats()
     riccati_cuda.launch_count = 0
     riccati_cuda.last_launch_dims = None
+    k10_before = k10_reset()
     seconds, sols = [], []
     for _ in range(solves):
         t0 = time.perf_counter()
@@ -677,6 +818,8 @@ def legged_tick_b256(torch, riccati_cuda, cfg, cold_b1, solves=TIMED_SOLVES):
     sweeps_run = sum(int(s.iterations.max()) for s in sols)
     assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
     assert dims == (batch, LEGGED_N, 24, 12), dims
+    k10_launches = k10_took_every_approximation(
+        k10_before, sweeps_run, (batch, LEGGED_N), "b256")
     assert sol.xs.shape == (batch, LEGGED_N + 1, 24) and sol.us.shape == (batch, LEGGED_N, 24)
     worst_g = check_legged_solution(torch, cfg, sol, "b256")
 
@@ -699,7 +842,7 @@ def legged_tick_b256(torch, riccati_cuda, cfg, cold_b1, solves=TIMED_SOLVES):
         "solves_timed": solves, "seconds_per_solve": sec, "solves_per_s": batch / sec,
         "iterations_histogram": {str(k): its.count(k) for k in sorted(set(its))},
         "converged_share": float(sol.converged.float().mean()),
-        "riccati_launches": launches, "kernel_dims": list(dims),
+        "riccati_launches": launches, "kernel_dims": list(dims), "k10_launches": k10_launches,
         "worst_abs_foot_constraint": worst_g,
         "dynamics_violation_sse_max": float(sol.performance.dynamics_violation_sse.max()),
         "equality_constraints_sse_max": float(sol.performance.equality_constraints_sse.max()),
@@ -795,6 +938,7 @@ def legged_mpc_closed_loop(torch, riccati_cuda, closed_loop_out=None):
     torch.cuda.synchronize()
     riccati_cuda.launch_count = 0
     riccati_cuda.last_launch_dims = None
+    k10_before = k10_reset()
     t0 = time.perf_counter()
     times, states, inputs = dummy_loop(
         iface, model.default_state(DEVICE), duration=MPC_DURATION, mrt_frequency=MRT_HZ,
@@ -816,6 +960,8 @@ def legged_mpc_closed_loop(torch, riccati_cuda, closed_loop_out=None):
     sweeps_run = sum(k["iterations"] for k in ticks)
     assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
     assert dims == (1, LEGGED_N, 24, 12), dims
+    k10_launches = k10_took_every_approximation(
+        k10_before, sweeps_run, (1, LEGGED_N), "closed loop")
 
     # The first three ticks once more from the exact inputs Mpc passed,
     # through the single-scenario sweep of torch ops.
@@ -857,7 +1003,7 @@ def legged_mpc_closed_loop(torch, riccati_cuda, closed_loop_out=None):
                                                                        ticks)],
         "base_height_max_abs_dev": height_dev, "worst_abs_foot_constraint": worst_g,
         "final_state_base_xyz": states[-1, 6:9].tolist(),
-        "riccati_launches": launches, "kernel_dims": list(dims),
+        "riccati_launches": launches, "kernel_dims": list(dims), "k10_launches": k10_launches,
         "kernel_vs_single_sweep_solve_max_abs_err": err_single,
     }
     emit(rec)
@@ -1634,9 +1780,11 @@ def legged_ipm_tick_b1(torch, riccati_cuda, cfg, chains=IPM_CHAINS, ticks_per_ch
     dependent receding-horizon ticks (each starts at the solved xs[1],
     warm-started with the solved inputs), after a cold solve from the
     weight-compensating guess that is also the warm-up.  The sweep is the
-    kernel with strict pivots, one launch per IPM iteration."""
+    kernel with strict pivots, one launch per IPM iteration; the hard cone's
+    LQ approximation takes the generic path, not K10."""
     riccati_cuda.launch_count = 0
     riccati_cuda.last_launch_dims = None
+    k10_before = k10_reset()
     t0 = time.perf_counter()
     cold = ipm_solve(cfg, cfg["x0"], cfg["us_init"])
     torch.cuda.synchronize()
@@ -1666,6 +1814,8 @@ def legged_ipm_tick_b1(torch, riccati_cuda, cfg, chains=IPM_CHAINS, ticks_per_ch
     sweeps_run = int(cold.iterations[0]) + sum(int(s.iterations[0]) for s in ticks)
     assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
     assert dims == (1, LEGGED_N, 24, 12), dims
+    k10_launches, _, generic_calls = k10_read(k10_before)
+    assert k10_launches == 0 and generic_calls > 0, (k10_launches, generic_calls)
     # The cold solve once more through the single-scenario sweep of torch ops.
     single = ipm_solve(cfg, cfg["x0"], cfg["us_init"], force_single_riccati=True)
     torch.cuda.synchronize()
@@ -1706,6 +1856,7 @@ def legged_ipm_tick_b1(torch, riccati_cuda, cfg, chains=IPM_CHAINS, ticks_per_ch
         "kernel_vs_single_sweep_iterations": [int(cold.iterations[0]),
                                               int(single.iterations[0])],
         "kernel_vs_single_sweep_tied": bool(tied_single),
+        "k10_launches": k10_launches, "generic_lq_calls": generic_calls,
     }
     emit(rec)
     return rec
@@ -1717,7 +1868,8 @@ def legged_ipm_b256(torch, riccati_cuda, cfg, solves=1):
     clamped pivots.  The same solve through the plain version is held
     against it.  The spread of iterations and of the final mu is per
     scenario: a reduction over the batch where one over a scenario's nodes
-    belongs would show as a spread of one."""
+    belongs would show as a spread of one.  The hard cone's LQ approximation
+    takes the generic path, not K10."""
     batch, nx = LEGGED_BATCH, 24
     i = torch.arange(batch, dtype=torch.float32, device=DEVICE)[:, None]
     j = torch.arange(nx, dtype=torch.float32, device=DEVICE)[None, :]
@@ -1732,6 +1884,7 @@ def legged_ipm_b256(torch, riccati_cuda, cfg, solves=1):
     torch.cuda.reset_peak_memory_stats()
     riccati_cuda.launch_count = 0
     riccati_cuda.last_launch_dims = None
+    k10_before = k10_reset()
     seconds, sols = [], []
     for _ in range(solves):
         t0 = time.perf_counter()
@@ -1742,6 +1895,8 @@ def legged_ipm_b256(torch, riccati_cuda, cfg, solves=1):
     sweeps_run = sum(int(s.iterations.max()) for s in sols)
     assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
     assert dims == (batch, LEGGED_N, 24, 12), dims
+    k10_launches, _, generic_calls = k10_read(k10_before)
+    assert k10_launches == 0 and generic_calls > 0, (k10_launches, generic_calls)
     worst_g, slack = check_ipm_solution(torch, cfg, sol, "ipm b256")
     plain = solve(force_plain_riccati=True)
     assert riccati_cuda.launch_count == launches, "the plain route launches no kernel"
@@ -1760,7 +1915,8 @@ def legged_ipm_b256(torch, riccati_cuda, cfg, solves=1):
         "final_mu_min": float(sol.ipm.mu.min()), "final_mu_max": float(sol.ipm.mu.max()),
         "min_stance_slack": float(slack.min()), "max_dual": float(sol.ipm.dual_ineq.max()),
         "riccati_launches": launches, "launches_per_solve": launches / solves,
-        "kernel_dims": list(dims), "worst_abs_foot_constraint": worst_g,
+        "kernel_dims": list(dims), "k10_launches": k10_launches,
+        "generic_lq_calls": generic_calls, "worst_abs_foot_constraint": worst_g,
         "dynamics_violation_sse_max": float(sol.performance.dynamics_violation_sse.max()),
         "kernel_vs_plain_solve_max_abs_err": err,
         "kernel_vs_plain_tied_scenarios": tied, "kernel_vs_plain_ties": tie_details,
@@ -4154,6 +4310,7 @@ def entry_step(torch, riccati_cuda):
     assert np.array_equal(rec_pr["entry_x0"], x0.cpu().numpy())
     riccati_cuda.launch_count = 0
     riccati_cuda.last_launch_dims = None
+    k10_before = k10_reset()
     t0 = time.perf_counter()
     xs, us, cost = step(x0)
     torch.cuda.synchronize()
@@ -4161,6 +4318,7 @@ def entry_step(torch, riccati_cuda):
     launches, dims = riccati_cuda.launch_count, riccati_cuda.last_launch_dims
     assert dims == (1, ENTRY_N, 24, 12), dims
     assert launches == int(rec_pr["entry_iterations"]), (launches, rec_pr["entry_iterations"])
+    k10_launches = k10_took_every_approximation(k10_before, launches, (1, ENTRY_N), "entry")
     err = {}
     for name, mine in (("xs", xs), ("us", us)):
         ref = torch.as_tensor(rec_pr[f"entry_{name}"], device=DEVICE)
@@ -4171,7 +4329,8 @@ def entry_step(torch, riccati_cuda):
     assert cost_rel <= ENTRY_COST_RTOL, cost_rel
     rec = {"phase": "entry_step", "N": ENTRY_N, "seconds_first_call": seconds,
            "iterations": launches, "jax_record_iterations": int(rec_pr["entry_iterations"]),
-           "riccati_launches": launches, "kernel_dims": list(dims), "vs_jax_record": err,
+           "riccati_launches": launches, "kernel_dims": list(dims),
+           "k10_launches": k10_launches, "vs_jax_record": err,
            "cost": float(cost), "cost_rel_diff": cost_rel, "ok": True}
     emit(rec)
     return rec
@@ -4605,8 +4764,8 @@ def ptxas_report(jobs, logs):
 
     out = {}
     for source, defines in jobs:
-        name = source.rsplit(".", 1)[0] + " " + "_".join(
-            d[2:].replace("=", "").lower() for d in defines)
+        name = (source.rsplit(".", 1)[0] + " " + "_".join(
+            d[2:].replace("=", "").lower() for d in defines)).strip()
         log = logs.get((source, tuple(defines)))
         if log is None:
             out[name] = "already built"
@@ -4663,7 +4822,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
 
-    from ocs2_tpu_torch.ops import _build, riccati, riccati_ct, riccati_ct_cuda, riccati_cuda
+    from ocs2_tpu_torch.ops import (_build, lq_srbd_cuda, riccati, riccati_ct, riccati_ct_cuda,
+                                    riccati_cuda)
 
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -4676,15 +4836,16 @@ def main() -> int:
     pairs = sorted({(nx, nu) for nx, nu, _, _ in KERNEL_SHAPES + [HYB_SHAPE, LS_SHAPE]
                     + ZOO_SHAPES})
     ct_pairs = sorted({(nx, nu) for nx, nu, _, _, _ in CT_SHAPES + [ZOO_CT_SHAPE]})
-    jobs = riccati_cuda.build_jobs(pairs) + riccati_ct_cuda.build_jobs(ct_pairs)
+    jobs = (riccati_cuda.build_jobs(pairs) + riccati_ct_cuda.build_jobs(ct_pairs)
+            + lq_srbd_cuda.build_jobs())
     logs = {}
     _build.build_libraries(jobs, logs=logs)
     emit({"phase": "build", "libraries": [f"riccati_backward nx{a}_nu{b}" for a, b in pairs]
-          + [f"riccati_ct_backward nx{a}_nu{b}" for a, b in ct_pairs],
+          + [f"riccati_ct_backward nx{a}_nu{b}" for a, b in ct_pairs] + ["lq_srbd"],
           "seconds": time.perf_counter() - t0, "ptxas": ptxas_report(jobs, logs)})
 
     emit({"phase": "kernels", "kernels": ["riccati_backward", "riccati_ct_backward",
-                                          "lqr_backward_parallel"],
+                                          "lqr_backward_parallel", "lq_srbd"],
           "shapes": [list(s) for s in KERNEL_SHAPES + [STRICT_SHAPE, PERC_SHAPE, LOOP_SHAPE,
                                                        CK_TROT_SHAPE, SLP_SHAPE, HYB_SHAPE,
                                                        SWITCH_SHAPE] + ZOO_SHAPES
@@ -4692,7 +4853,8 @@ def main() -> int:
                      + list(MPCNET_SHAPES.values()) + list(MPCNET_EVAL_SHAPES.values())
                      + [DRYRUN_SHAPE]],
           "parallel_shapes": [list(s) for s in K7_SHAPES],
-          "ct_shapes": [list(s[:4]) for s in CT_SHAPES + [ZOO_CT_SHAPE]]})
+          "ct_shapes": [list(s[:4]) for s in CT_SHAPES + [ZOO_CT_SHAPE]],
+          "lq_srbd_shapes": [list(s) for s in K10_SHAPES]})
     checks = [
         check_kernel(torch, riccati, riccati_cuda, shape, seed=11 + i, timed=i < 3)
         for i, shape in enumerate(KERNEL_SHAPES)
@@ -4738,6 +4900,8 @@ def main() -> int:
                                              MPCNET_EVAL_SHAPES.items()])}
     # The dry run's scenario chunks (clamped at B = 2).
     at_dry = check_kernel(torch, riccati, riccati_cuda, DRYRUN_SHAPE, seed=85, timed=True)
+    # K10 at the legged lanes' (B, N) and at the benchmark cell's.
+    k10_checks = [check_k10(torch, shape, seed=91 + i) for i, shape in enumerate(K10_SHAPES)]
     if args.skip_main_path:
         return 0
     run = main_path(torch, riccati_cuda)
@@ -5066,6 +5230,31 @@ def main() -> int:
                                       "bound_by", "bound_term", "max_abs_err",
                                       "jax_k7_vs_sequential_max_abs")}
                    for c in k7_checks],
+    }, {
+        "name": "lq_srbd", "route": "cuda", "source": "ocs2_tpu_torch/csrc/lq_srbd.cu",
+        # XLA's fusion of vmap over jacfwd in the JAX package, not a Pallas kernel.
+        "replaces": "ocs2_tpu/oc/approx.py:approximate_lq",
+        "launches": sum(r["k10_launches"] for r in (b1, b256, closed, ent)),
+        "max_abs_err": max(c["max_abs_err"] for c in k10_checks),
+        "shape": dict(zip(("nx", "nu", "B", "N"), (24, 24) + K10_SHAPES[-1])),
+        "ms": k10_checks[-1]["kernel_ms"], "ms_queued": k10_checks[-1]["kernel_ms_queued"],
+        "plain_ms": k10_checks[-1]["plain_ms"], "bound_ms": k10_checks[-1]["bound_ms"],
+        "bound_by": k10_checks[-1]["bound_by"], "library_ms": None,
+        # One entry per lane, each driven with the count set to 0 just before
+        # it and read just after; the IPM lanes (hard cone) take the generic
+        # path and launch it no time.
+        "paths": [
+            {"path": path, "launches": r["k10_launches"], "B": r_shape[0], "N": r_shape[1]}
+            for path, r, r_shape in (
+                ("legged_sqp_b1", b1, K10_SHAPES[0]), ("legged_sqp_b256", b256, K10_SHAPES[1]),
+                ("legged_mpc_closed_loop", closed, K10_SHAPES[0]),
+                ("entry_step", ent, (1, ENTRY_N)), ("legged_ipm_b1", ipm_b1, K10_SHAPES[0]),
+                ("legged_ipm_b256", ipm_b256, K10_SHAPES[1]))
+        ],
+        "checks": [{k: c[k] for k in ("B", "N", "kernel_ms", "kernel_ms_queued", "plain_ms",
+                                      "bound_ms", "bound_by", "bytes", "max_abs_err",
+                                      "worst_in_tolerance_units", "blocks", "threads")}
+                   for c in k10_checks],
     }]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -27,11 +27,13 @@ class PenaltyValue(NamedTuple):
 Penalty = Callable[[Tensor], PenaltyValue]
 
 
-def _with_derivatives(fn: Callable[[Tensor], Tensor]) -> Penalty:
+def _with_derivatives(fn: Callable[[Tensor], Tensor], form: tuple) -> Penalty:
     """Lift a scalar penalty fn to (value, first, second) elementwise.
 
     ``fn`` is differentiated twice per element with ``torch.func.grad`` under
-    ``torch.func.vmap``, so it must stay branch-free (``torch.where``)."""
+    ``torch.func.vmap``, so it must stay branch-free (``torch.where``).  The
+    penalty keeps ``form``, its name and parameters, as ``penalty.form``: a
+    kernel that evaluates the penalty in closed form reads them there."""
 
     d1 = torch.func.grad(fn)
     d2 = torch.func.grad(d1)
@@ -43,6 +45,7 @@ def _with_derivatives(fn: Callable[[Tensor], Tensor]) -> Penalty:
         gg = torch.func.vmap(d2)(flat).reshape(h.shape)
         return PenaltyValue(v, g, gg)
 
+    penalty.form = form
     return penalty
 
 
@@ -57,7 +60,7 @@ def relaxed_barrier(mu: float = 1.0, delta: float = 1e-3) -> Penalty:
         )
         return torch.where(h > delta, log_branch, quad_branch)
 
-    return _with_derivatives(fn)
+    return _with_derivatives(fn, ("relaxed_barrier", mu, delta))
 
 
 def squared_hinge(mu: float = 1.0, delta: float = 0.0) -> Penalty:
@@ -66,7 +69,7 @@ def squared_hinge(mu: float = 1.0, delta: float = 0.0) -> Penalty:
     def fn(h):
         return 0.5 * mu * torch.square(torch.clamp(delta - h, min=0.0))
 
-    return _with_derivatives(fn)
+    return _with_derivatives(fn, ("squared_hinge", mu, delta))
 
 
 def quadratic(scale: float = 1.0) -> Penalty:
@@ -75,7 +78,7 @@ def quadratic(scale: float = 1.0) -> Penalty:
     def fn(h):
         return 0.5 * scale * torch.square(h)
 
-    return _with_derivatives(fn)
+    return _with_derivatives(fn, ("quadratic", scale))
 
 
 def smooth_absolute(scale: float = 1.0, relaxation: float = 1e-2) -> Penalty:
@@ -84,7 +87,7 @@ def smooth_absolute(scale: float = 1.0, relaxation: float = 1e-2) -> Penalty:
     def fn(h):
         return scale * (torch.sqrt(torch.square(h) + relaxation**2) - relaxation)
 
-    return _with_derivatives(fn)
+    return _with_derivatives(fn, ("smooth_absolute", scale, relaxation))
 
 
 def double_sided(lower, upper, inner: Penalty) -> Penalty:

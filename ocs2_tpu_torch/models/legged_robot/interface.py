@@ -6,6 +6,7 @@ Counterpart of ``ocs2_tpu/models/legged_robot/interface.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -24,6 +25,7 @@ from ...oc.time_discretization import TimeGrid
 from . import constraints as con
 from . import model
 from .gait import GAIT_MAP, GaitSchedule
+from .lq_kernel import SrbdLqKernel
 from .swing import plan_swing_references
 
 # Base-tracking weights.
@@ -131,6 +133,9 @@ def make_problem(
         problem = problem.add(cost_terms=(con.make_friction_cone_soft(),))
     else:
         problem = problem.add(inequality_terms=(con.friction_cone,))
+    if model_type == "srbd" and friction_cone == "soft" and project_foot_constraint:
+        # K10 computes this problem's whole LQ approximation on the card.
+        problem = dataclasses.replace(problem, lq_kernel=SrbdLqKernel(problem))
     return problem
 
 

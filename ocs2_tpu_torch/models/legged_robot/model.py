@@ -61,6 +61,8 @@ DEFAULT_JOINTS = np.array(
     ],
     np.float32,
 ).reshape(-1)
+# Floor of cos(pitch) in the Euler-rate matrix (keeps it finite at +-90 deg).
+EULER_RATE_COS_FLOOR = 1e-3
 # Kinematically consistent with DEFAULT_JOINTS: (thigh + shank)*cos(0.4) so
 # the default stance puts the feet exactly on the ground plane (terrain
 # constraints depend on this; a mismatch makes every stance foot hover).
@@ -158,7 +160,7 @@ def euler_zyx_rotation(euler: Tensor) -> Tensor:
 def euler_zyx_rate_matrix(euler: Tensor) -> Tensor:
     """Body angular velocity -> ZYX euler rates, [..., 3, 3]."""
     pitch, roll = euler[..., 1:2], euler[..., 2:3]
-    cp = torch.clamp(torch.cos(pitch), min=1e-3)
+    cp = torch.clamp(torch.cos(pitch), min=EULER_RATE_COS_FLOOR)
     sp = torch.sin(pitch)
     cr, sr = torch.cos(roll), torch.sin(roll)
     zero, one = torch.zeros_like(cp), torch.ones_like(cp)

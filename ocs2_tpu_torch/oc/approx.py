@@ -5,9 +5,12 @@ written for a single node of a single scenario and mapped with
 ``torch.func.vmap`` over the nodes of the horizon and over the scenarios of
 the batch; the Jacobians of the discretized flow are ``torch.func.jacfwd``
 inside that map, the generic cost/constraint fallbacks are
-``torch.func.hessian`` / ``jacrev``.  ``approximate_lq_ct`` gives the
-continuous-time LQ data of the SLQ backward pass (``ops/riccati_ct.py``) the
-same way.
+``torch.func.hessian`` / ``jacrev``.  A problem may carry a hand-written
+kernel of the whole approximation (``OptimalControlProblem.lq_kernel``, K10
+for the legged SRBD problem); ``approximate_lq`` hands it the calls it
+computes exactly (``kernel_takes``) and counts each path in
+``path_counts``.  ``approximate_lq_ct`` gives the continuous-time LQ data of
+the SLQ backward pass (``ops/riccati_ct.py``) the generic way.
 """
 from __future__ import annotations
 
@@ -233,6 +236,30 @@ def _vector_from(prefix, out: dict) -> Optional[VectorLinearApproximation]:
     )
 
 
+# Calls of approximate_lq by the path they took: "kernel", the problem's
+# hand-written kernel (K10, models/legged_robot/lq_kernel), or "generic".
+path_counts = {"kernel": 0, "generic": 0}
+
+
+def kernel_takes(problem: OptimalControlProblem, params: Any, method: str, substeps: int,
+                 device, dtype) -> bool:
+    """Whether ``problem.lq_kernel`` computes exactly this call: the problem
+    still has the terms the kernel was made for, no per-scenario parameters
+    (an "al" entry is read by no term of such a problem), tensors in float32
+    on a CUDA device, and the integrator the kernel implements, in one
+    step."""
+    kernel = problem.lq_kernel
+    return (
+        kernel is not None
+        and kernel.computes(problem)
+        and not (isinstance(params, dict) and "scenario" in params)
+        and torch.device(device).type == "cuda"
+        and dtype == torch.float32
+        and method.lower() == kernel.method
+        and substeps == 1
+    )
+
+
 def approximate_lq(
     problem: OptimalControlProblem,
     grid: TimeGrid,
@@ -242,9 +269,32 @@ def approximate_lq(
     method: str = "rk4",
     substeps: int = 1,
 ) -> LQData:
-    """Full-horizon LQ approximation of a batch of trajectories in one mapped
-    evaluation.  ``params`` is shared by the scenarios except the entries
-    named in PER_SCENARIO_KEYS, whose leaves carry a leading [B]."""
+    """Full-horizon LQ approximation of a batch of trajectories.  ``params``
+    is shared by the scenarios except the entries named in
+    PER_SCENARIO_KEYS, whose leaves carry a leading [B].  Computed by the
+    problem's kernel where ``kernel_takes`` holds, else by the generic
+    mapped evaluation; both give the same LQData."""
+    same = xs.device == us.device and xs.dtype == us.dtype
+    if same and kernel_takes(problem, params, method, substeps, xs.device, xs.dtype):
+        path_counts["kernel"] += 1
+        return problem.lq_kernel.approximate(grid, xs, us, params)
+    path_counts["generic"] += 1
+    return _approximate_lq_generic(problem, grid, xs, us, params, method, substeps)
+
+
+def _approximate_lq_generic(
+    problem: OptimalControlProblem,
+    grid: TimeGrid,
+    xs: Tensor,
+    us: Tensor,
+    params: Any,
+    method: str = "rk4",
+    substeps: int = 1,
+) -> LQData:
+    """``approximate_lq`` of any problem in one mapped evaluation: ``vmap``
+    over scenarios and nodes of ``jacfwd`` of the discrete step, the terms'
+    closed-form or Gauss-Newton quadratizations and ``jacrev`` of the
+    constraints."""
     grid = grid.device(xs.device)
     n = grid.num_intervals
     nx, nu = problem.nx, problem.nu

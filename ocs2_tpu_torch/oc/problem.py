@@ -86,6 +86,12 @@ class OptimalControlProblem:
     # Static model dimensions.
     nx: int = 0
     nu: int = 0
+    # A hand-written kernel of the whole LQ approximation, set by a model's
+    # constructor for exactly the terms above (``oc/approx.kernel_takes``:
+    # it serves a problem only while its terms are those it was made for,
+    # so ``add`` and ``solvers/al.augment_problem`` leave it unused once
+    # they add a term).
+    lq_kernel: Any = None
 
     # -- fused evaluators ---------------------------------------------------
     def cost(self, t, x, u, p):
@@ -359,10 +365,13 @@ class ResidualGaussNewtonCost:
 
 def soft_constraint(constraint_fn: ConstraintFn, penalty, with_input: bool = True):
     """Fold an inequality constraint h >= 0 into a cost term via a penalty
-    (``core/penalties``).  Returns a structured Gauss-Newton term."""
-    return GaussNewtonCost(
+    (``core/penalties``).  Returns a structured Gauss-Newton term, which
+    keeps ``penalty`` as ``term.penalty``."""
+    term = GaussNewtonCost(
         constraint_fn, lambda h, p: penalty(h), with_input=with_input
     )
+    term.penalty = penalty
+    return term
 
 
 def soft_box_input_constraint(lower, upper, penalty, device="cuda"):
