@@ -36,6 +36,11 @@ Lagrangian (as in solvers/sqp.py); state-only inequalities get their own
 slack/dual pairs over the N+1 state nodes (the terminal node condenses into
 the terminal cost).  A family that is absent has zero-width slacks and duals
 and takes no part in any reduction.
+
+While recording is on (``utils/timers``: under ``torch.profiler`` or inside
+``timers.recording()``), the loop marks its phases as spans, one of each an
+iteration, on the host's clock, the stream's and the profiler's timeline, as
+``solvers/sqp.solve`` does.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from ..ops.riccati import (
     lqr_backward_parallel,
     lqr_forward,
 )
+from ..utils.timers import SPANS
 from .al import AlState, augment_problem
 from .ddp import _where, _where_tree
 from .sqp import _defects
@@ -353,11 +359,14 @@ def solve(
     dx0 = torch.zeros((batch, nx), dtype=f32, device=dev)
     # The sweep runs unregularized: hessian_reg * I went into Quu above.
     reg0 = torch.zeros((batch,), dtype=f32, device=dev)
+    spans = SPANS.solve("ipm.solve", dev)
 
     def iteration(c: _Carry):
+        spans.mark("ipm.approx", synced=True)
         p_al = dict(params, al=c.al)
         lq = approximate_lq(
             aug, grid, c.xs, c.us, p_al, method=settings.integrator, substeps=settings.substeps)
+        spans.mark("ipm.condense")
         dQxx, dqx, dQuu, dqu, dQux, dQf, dqf = _condense(lq, c.ipm)
         coeffs = LqrCoeffs(
             A=lq.dynamics.dfdx,
@@ -375,6 +384,7 @@ def solve(
             coeffs = convexify(coeffs, settings.hessian_reg, method=settings.hessian_correction)
 
         def solve_qp(qp: LqrCoeffs):
+            spans.mark("ipm.riccati")
             qp = LqrCoeffs(*(leaf.contiguous() for leaf in qp))
             if settings.parallel_riccati:
                 # The JAX package's IPM passes no regularization to either sweep.
@@ -382,10 +392,12 @@ def solve(
             else:
                 sol = lqr_backward(
                     qp, reg0, force_plain=force_plain_riccati, force_single=force_single_riccati)
+            spans.mark("ipm.forward")
             dxs, dus_r = lqr_forward(qp, sol, dx0)
             return dxs, dus_r, sol
 
         if project:
+            spans.mark("ipm.projection")
             reduced, proj = project_lqr_coeffs(coeffs, lq.eq.f, lq.eq.dfdx, lq.eq.dfdu)
             dxs, dvs, sol = solve_qp(reduced)
             dus = remap_projected_input(proj, dxs[:, :-1], dvs)
@@ -415,6 +427,7 @@ def solve(
 
         # Filter line search on the barrier merit over the FTB-scaled grid:
         # all candidates [B, A, ...] in one evaluation.
+        spans.mark("ipm.line_search")
         a_eff = alphas[None, :] * a_primal[:, None]  # [B, A]
         a4 = a_eff[:, :, None, None]
         xs_cand = c.xs[:, None] + a4 * dxs[:, None]
@@ -449,6 +462,7 @@ def solve(
         metrics_n = TrajectoryMetrics(*(pick(a) for a in metrics_cand))
         viol_n = torch.where(any_ok, pick(viols), c.viol)
 
+        spans.mark("ipm.update")
         # Accepted slack step + full FTB dual step (separate primal and dual
         # step sizes).  The slacks are NOT guarded by any_ok, as in the
         # reference: a rejected non-finite step (the B = 1 sweep's NaN on a
@@ -521,9 +535,15 @@ def solve(
         for _ in IterationLog._fields
     ))
 
+    # The phases of an iteration, marked in this order: ipm.host_read,
+    # ipm.approx, ipm.condense, ipm.projection (when projecting), ipm.riccati,
+    # ipm.forward, ipm.line_search and ipm.update, which ends after the carry
+    # merge and the history write.
     for i in range(settings.max_iterations):
+        spans.mark("ipm.host_read", iteration=i)
         active = (carry.it < settings.max_iterations) & ~carry.done
         if not bool(active.any()):  # the one host read of the iteration
+            spans.drop()
             break
         new, log = iteration(carry)
         carry = _Carry(*(
@@ -532,6 +552,7 @@ def solve(
         ))
         for col, val in zip(history, log):
             col[:, i] = torch.where(active, val, col[:, i])
+    spans.end()
 
     metrics_f = eval_traj(carry.xs, carry.us)
     performance = PerformanceIndex(

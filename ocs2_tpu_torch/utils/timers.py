@@ -5,7 +5,10 @@ intervals, used to instrument MPC ticks.  ``last`` holds the latest interval,
 so a caller can read each tick's time as it happens.
 
 The same module records the consecutive phases of a solve (``SpanRecorder``;
-``solvers/sqp.solve`` marks its loop).  A mark closes the open phase and
+``solvers/sqp.solve`` marks its loop as ``sqp.*`` spans, ``solvers/ipm.solve``
+its loop as ``ipm.*`` spans: ``ipm.host_read``, ``ipm.approx``,
+``ipm.condense``, ``ipm.projection``, ``ipm.riccati``, ``ipm.forward``,
+``ipm.line_search``, ``ipm.update``).  A mark closes the open phase and
 opens the next, so the phases tile the loop.  Each phase keeps its host
 interval (``time.perf_counter_ns``) and its device interval: the stretch of
 the stream's timeline between two CUDA events recorded at its boundaries,
