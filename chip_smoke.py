@@ -8,10 +8,11 @@ each against its plain PyTorch version on the card, then drives the port's
 main paths and checks that they went through the kernels.  K10
 (``csrc/lq_srbd.cu``, the legged SRBD problem's whole LQ approximation) is
 held against the generic ``_approximate_lq_generic`` at (B, N) = (1, 100),
-(256, 100) and (4096, 100), every leaf of LQData, and timed beside its bytes
-bound; the legged SQP lanes below (the B = 1 tick, b256, the closed loop,
-the entry step) count its launches, one an SQP iteration with no generic
-call, and the IPM lanes (hard cone) count none.  The lanes:
+(256, 100) and (4096, 100) in both variants (the soft cone's problem, and
+the hard cone's that ``ipm.solve`` approximates), every leaf of LQData, and
+timed beside its bytes bound; the legged SQP lanes below (the B = 1 tick,
+b256, the closed loop, the entry step) and the IPM lanes (hard cone) count
+its launches, one an SQP or IPM iteration with no generic call.  The lanes:
 
 * ``ddp.solve`` (iLQR) on the ballbot problem, a batch of 4096 scenarios,
   32 intervals;
@@ -45,8 +46,8 @@ call, and the IPM lanes (hard cone) count none.  The lanes:
   cone (the barrier's inequality; the foot constraint projected, N = 100,
   15 iterations at most): ``legged_ipm_tick_b1`` (a cold solve from the
   weight-compensating guess, then a chain of 2 receding-horizon ticks; the
-  kernel at (1, 100, 24, 12) with strict pivots, one launch per IPM
-  iteration) and ``legged_ipm_b256`` (the b256 lane's scenarios; the kernel
+  kernel at (1, 100, 24, 12) with strict pivots and K10's hard variant, one
+  launch each per IPM iteration) and ``legged_ipm_b256`` (the b256 lane's scenarios; the kernel
   at (256, 100, 24, 12), clamped), each held against the sweep's torch-op
   routes;
 * SLP (``slp.solve``: SQP with the PIPG inner solver, ``ops/pipg.py``) on the
@@ -487,7 +488,8 @@ def main_path(torch, riccati_cuda):
 _, _, LEGGED_BATCH, LEGGED_N = LEGGED_SHAPE
 LEGGED_HORIZON = 1.0
 # K10's (B, N): the B = 1 tick and the closed loop, the b256 lane, and the
-# benchmark's legged-sqp-b4096 cell.
+# benchmark's legged-sqp-b4096 cell; the hard variant's the same, for the IPM
+# lanes and legged-ipm-b4096.
 K10_SHAPES = [(1, LEGGED_N), (LEGGED_BATCH, LEGGED_N), (4096, LEGGED_N)]
 
 
@@ -525,9 +527,11 @@ def lq_leaves(lq):
             for f, v in rec._asdict().items() if v is not None}
 
 
-def check_k10(torch, shape, seed):
-    """K10 through the entry point the solvers call (``approximate_lq``)
-    against its plain version (``_approximate_lq_generic``) on the same
+def check_k10(torch, shape, seed, cone="soft"):
+    """K10 through the entry point the solvers call (``approximate_lq``),
+    in the variant of ``cone`` ("soft", or "hard": the problem ``ipm.solve``
+    approximates, with its AL state) against its plain version
+    (``_approximate_lq_generic``) on the same
     inputs: every leaf of LQData finite and within ATOL + RTOL |plain|.
     Then its time through the wrapper (median of 20 calls) and queued (20
     back to back), the plain version's (3 calls), and its bound: the bytes
@@ -538,18 +542,23 @@ def check_k10(torch, shape, seed):
     from ocs2_tpu_torch.models.legged_robot import interface
     from ocs2_tpu_torch.oc import approx
     from ocs2_tpu_torch.ops import lq_srbd_cuda
+    from ocs2_tpu_torch.solvers import al, ipm
 
     batch, n = shape
     grid, xs, us, params = k10_inputs(torch, batch, n, seed)
     problem = interface.make_problem(device=DEVICE)
+    if cone == "hard":
+        problem = ipm.augment(interface.make_problem(friction_cone="hard", device=DEVICE), True)
+        dims = problem.constraint_dims(approx.example_params(params, DEVICE), device=DEVICE)
+        params = dict(params, al=al.AlState.init(dims, n, batch=(batch,), device=DEVICE))
     k10 = lambda: approx.approximate_lq(problem, grid, xs, us, params, "rk2")  # noqa: E731
     plain = lambda: approx._approximate_lq_generic(  # noqa: E731
         problem, grid, xs, us, params, "rk2")
-    before, kernel_calls = lq_srbd_cuda.launch_count, approx.path_counts["kernel"]
+    before, variant_calls = lq_srbd_cuda.launch_count, approx.variant_counts[cone]
     out = lq_leaves(k10())
     torch.cuda.synchronize()
     assert lq_srbd_cuda.launch_count == before + 1, "approximate_lq did not launch K10"
-    assert approx.path_counts["kernel"] == kernel_calls + 1
+    assert approx.variant_counts[cone] == variant_calls + 1
     assert lq_srbd_cuda.last_launch_dims == (batch, n), lq_srbd_cuda.last_launch_dims
     ref = lq_leaves(plain())
     max_err, worst, bad = 0.0, {}, []
@@ -569,10 +578,11 @@ def check_k10(torch, shape, seed):
     nodes = problem.lq_kernel.node_inputs(grid.device(DEVICE), params)
     read = sum(t.numel() * t.element_size()
                for t in (xs, us, *nodes, *problem.lq_kernel.weights))
-    written = 4 * sum(math.prod(s) for s in lq_srbd_cuda.result_shapes(batch, n))
+    written = 4 * sum(math.prod(s) for s in lq_srbd_cuda.result_shapes(batch, n, cone == "hard")
+                      if s is not None)
     rec = {
-        "phase": "kernel_check", "kernel": "lq_srbd", "B": batch, "N": n, "nx": 24, "nu": 24,
-        "method": lq_srbd_cuda.METHOD,
+        "phase": "kernel_check", "kernel": "lq_srbd", "cone": cone, "B": batch, "N": n,
+        "nx": 24, "nu": 24, "method": lq_srbd_cuda.METHOD,
         "blocks": -(-batch * (n + 1) // lq_srbd_cuda.NODES_PER_BLOCK),
         "threads": lq_srbd_cuda.NODES_PER_BLOCK * lq_srbd_cuda.THREADS_PER_NODE,
         "max_abs_err": max_err, "worst_in_tolerance_units": worst, "rtol": RTOL, "atol": ATOL,
@@ -586,13 +596,13 @@ def check_k10(torch, shape, seed):
         rec["plain_ms"] = time_ms(torch, plain, reps=3, warmup=0)
     emit(rec)
     if bad:
-        raise SystemExit(f"lq_srbd disagrees with its plain version at {shape}: {bad}")
+        raise SystemExit(f"lq_srbd ({cone}) disagrees with its plain version at {shape}: {bad}")
     return rec
 
 
 def k10_reset():
     """Zero K10's launch counter just before a lane; returns the path counts
-    of ``approximate_lq`` then, for k10_read."""
+    of ``approximate_lq`` then, for k10_took_every_approximation."""
     from ocs2_tpu_torch.oc import approx
     from ocs2_tpu_torch.ops import lq_srbd_cuda
 
@@ -600,20 +610,15 @@ def k10_reset():
     return dict(approx.path_counts)
 
 
-def k10_read(before):
-    """(K10's launches, the (B, N) of its last, the generic path's calls)
-    since k10_reset returned ``before``."""
+def k10_took_every_approximation(before, sweeps, dims, what):
+    """The lane's LQ approximations, one an SQP or IPM iteration (one a
+    sweep), all went through K10 at ``dims`` since k10_reset returned
+    ``before``; returns its launches."""
     from ocs2_tpu_torch.oc import approx
     from ocs2_tpu_torch.ops import lq_srbd_cuda
 
-    return (lq_srbd_cuda.launch_count, lq_srbd_cuda.last_launch_dims,
-            approx.path_counts["generic"] - before["generic"])
-
-
-def k10_took_every_approximation(before, sweeps, dims, what):
-    """The lane's LQ approximations, one an SQP iteration (one a sweep), all
-    went through K10 at ``dims``; returns its launches."""
-    launches, last_dims, generic = k10_read(before)
+    launches, last_dims = lq_srbd_cuda.launch_count, lq_srbd_cuda.last_launch_dims
+    generic = approx.path_counts["generic"] - before["generic"]
     assert launches == sweeps and generic == 0, (what, launches, sweeps, generic)
     assert last_dims == dims, (what, last_dims)
     return launches
@@ -1780,8 +1785,8 @@ def legged_ipm_tick_b1(torch, riccati_cuda, cfg, chains=IPM_CHAINS, ticks_per_ch
     dependent receding-horizon ticks (each starts at the solved xs[1],
     warm-started with the solved inputs), after a cold solve from the
     weight-compensating guess that is also the warm-up.  The sweep is the
-    kernel with strict pivots, one launch per IPM iteration; the hard cone's
-    LQ approximation takes the generic path, not K10."""
+    kernel with strict pivots, one launch per IPM iteration, and so is the
+    LQ approximation's, K10's hard variant."""
     riccati_cuda.launch_count = 0
     riccati_cuda.last_launch_dims = None
     k10_before = k10_reset()
@@ -1814,8 +1819,7 @@ def legged_ipm_tick_b1(torch, riccati_cuda, cfg, chains=IPM_CHAINS, ticks_per_ch
     sweeps_run = int(cold.iterations[0]) + sum(int(s.iterations[0]) for s in ticks)
     assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
     assert dims == (1, LEGGED_N, 24, 12), dims
-    k10_launches, _, generic_calls = k10_read(k10_before)
-    assert k10_launches == 0 and generic_calls > 0, (k10_launches, generic_calls)
+    k10_launches = k10_took_every_approximation(k10_before, sweeps_run, (1, LEGGED_N), "ipm b1")
     # The cold solve once more through the single-scenario sweep of torch ops.
     single = ipm_solve(cfg, cfg["x0"], cfg["us_init"], force_single_riccati=True)
     torch.cuda.synchronize()
@@ -1856,7 +1860,7 @@ def legged_ipm_tick_b1(torch, riccati_cuda, cfg, chains=IPM_CHAINS, ticks_per_ch
         "kernel_vs_single_sweep_iterations": [int(cold.iterations[0]),
                                               int(single.iterations[0])],
         "kernel_vs_single_sweep_tied": bool(tied_single),
-        "k10_launches": k10_launches, "generic_lq_calls": generic_calls,
+        "k10_launches": k10_launches,
     }
     emit(rec)
     return rec
@@ -1868,8 +1872,8 @@ def legged_ipm_b256(torch, riccati_cuda, cfg, solves=1):
     clamped pivots.  The same solve through the plain version is held
     against it.  The spread of iterations and of the final mu is per
     scenario: a reduction over the batch where one over a scenario's nodes
-    belongs would show as a spread of one.  The hard cone's LQ approximation
-    takes the generic path, not K10."""
+    belongs would show as a spread of one.  The LQ approximation is K10's
+    hard variant, one launch an IPM iteration."""
     batch, nx = LEGGED_BATCH, 24
     i = torch.arange(batch, dtype=torch.float32, device=DEVICE)[:, None]
     j = torch.arange(nx, dtype=torch.float32, device=DEVICE)[None, :]
@@ -1895,8 +1899,8 @@ def legged_ipm_b256(torch, riccati_cuda, cfg, solves=1):
     sweeps_run = sum(int(s.iterations.max()) for s in sols)
     assert launches == sweeps_run and launches > 0, (launches, sweeps_run)
     assert dims == (batch, LEGGED_N, 24, 12), dims
-    k10_launches, _, generic_calls = k10_read(k10_before)
-    assert k10_launches == 0 and generic_calls > 0, (k10_launches, generic_calls)
+    k10_launches = k10_took_every_approximation(
+        k10_before, sweeps_run, (batch, LEGGED_N), "ipm b256")
     worst_g, slack = check_ipm_solution(torch, cfg, sol, "ipm b256")
     plain = solve(force_plain_riccati=True)
     assert riccati_cuda.launch_count == launches, "the plain route launches no kernel"
@@ -1916,7 +1920,7 @@ def legged_ipm_b256(torch, riccati_cuda, cfg, solves=1):
         "min_stance_slack": float(slack.min()), "max_dual": float(sol.ipm.dual_ineq.max()),
         "riccati_launches": launches, "launches_per_solve": launches / solves,
         "kernel_dims": list(dims), "k10_launches": k10_launches,
-        "generic_lq_calls": generic_calls, "worst_abs_foot_constraint": worst_g,
+        "worst_abs_foot_constraint": worst_g,
         "dynamics_violation_sse_max": float(sol.performance.dynamics_violation_sse.max()),
         "kernel_vs_plain_solve_max_abs_err": err,
         "kernel_vs_plain_tied_scenarios": tied, "kernel_vs_plain_ties": tie_details,
@@ -4902,6 +4906,8 @@ def main() -> int:
     at_dry = check_kernel(torch, riccati, riccati_cuda, DRYRUN_SHAPE, seed=85, timed=True)
     # K10 at the legged lanes' (B, N) and at the benchmark cell's.
     k10_checks = [check_k10(torch, shape, seed=91 + i) for i, shape in enumerate(K10_SHAPES)]
+    k10_hard_checks = [check_k10(torch, shape, seed=94 + i, cone="hard")
+                       for i, shape in enumerate(K10_SHAPES)]
     if args.skip_main_path:
         return 0
     run = main_path(torch, riccati_cuda)
@@ -5234,15 +5240,15 @@ def main() -> int:
         "name": "lq_srbd", "route": "cuda", "source": "ocs2_tpu_torch/csrc/lq_srbd.cu",
         # XLA's fusion of vmap over jacfwd in the JAX package, not a Pallas kernel.
         "replaces": "ocs2_tpu/oc/approx.py:approximate_lq",
-        "launches": sum(r["k10_launches"] for r in (b1, b256, closed, ent)),
-        "max_abs_err": max(c["max_abs_err"] for c in k10_checks),
+        "launches": sum(r["k10_launches"] for r in (b1, b256, closed, ent, ipm_b1, ipm_b256)),
+        "max_abs_err": max(c["max_abs_err"] for c in k10_checks + k10_hard_checks),
         "shape": dict(zip(("nx", "nu", "B", "N"), (24, 24) + K10_SHAPES[-1])),
         "ms": k10_checks[-1]["kernel_ms"], "ms_queued": k10_checks[-1]["kernel_ms_queued"],
         "plain_ms": k10_checks[-1]["plain_ms"], "bound_ms": k10_checks[-1]["bound_ms"],
         "bound_by": k10_checks[-1]["bound_by"], "library_ms": None,
         # One entry per lane, each driven with the count set to 0 just before
-        # it and read just after; the IPM lanes (hard cone) take the generic
-        # path and launch it no time.
+        # it and read just after; the IPM lanes (hard cone) launch the hard
+        # variant.
         "paths": [
             {"path": path, "launches": r["k10_launches"], "B": r_shape[0], "N": r_shape[1]}
             for path, r, r_shape in (
@@ -5251,10 +5257,10 @@ def main() -> int:
                 ("entry_step", ent, (1, ENTRY_N)), ("legged_ipm_b1", ipm_b1, K10_SHAPES[0]),
                 ("legged_ipm_b256", ipm_b256, K10_SHAPES[1]))
         ],
-        "checks": [{k: c[k] for k in ("B", "N", "kernel_ms", "kernel_ms_queued", "plain_ms",
-                                      "bound_ms", "bound_by", "bytes", "max_abs_err",
+        "checks": [{k: c[k] for k in ("cone", "B", "N", "kernel_ms", "kernel_ms_queued",
+                                      "plain_ms", "bound_ms", "bound_by", "bytes", "max_abs_err",
                                       "worst_in_tolerance_units", "blocks", "threads")}
-                   for c in k10_checks],
+                   for c in k10_checks + k10_hard_checks],
     }]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -5,12 +5,22 @@
 // The port's generic path (`_approximate_lq_generic` in
 // ocs2_tpu_torch/oc/approx.py, `torch.func.vmap` of `jacfwd` and `jacrev`) is
 // its plain version; the wrapper is ocs2_tpu_torch/ops/lq_srbd_cuda.py, the
-// problem it serves is built by
+// problems it serves are built by
 // ocs2_tpu_torch/models/legged_robot/interface.make_problem (model "srbd",
-// soft friction cone, projected foot constraint), and
+// projected foot constraint, either friction cone), and
 // ocs2_tpu_torch/models/legged_robot/lq_kernel.py hands it the weights and
 // constants read from that problem's terms and model.  This file holds the
 // functional form only.
+//
+// Two variants, built from this one source (the template parameter
+// kHardCone), differ only in the friction cone's four rows:
+//   soft (kHardCone false): the cone is a relaxed barrier in the cost, as
+//               below; writes the cost, the dynamics and the foot constraint.
+//   hard (kHardCone true):  the cone is the inequality h_c >= 0 (IPM's
+//               barrier, solvers/ipm.py); the cost leaves it out, and the
+//               kernel writes its linearization besides: ineq f [B, N, 4],
+//               dfdu [B, N, 4, 24] and dfdx [B, N, 4, 24], the last exactly
+//               zero (the cone reads no state).
 //
 // What it computes, for node k of scenario b (x = xs[b, k], u = us[b, k],
 // dt = t[k+1] - t[k], m = is_jump[k], c_l = bit l of mode[k], one flag a leg):
@@ -25,16 +35,19 @@
 //                 h_v,l = (1-c_l)(v_z,l - vz*_k,l)   swing velocity, quadratic
 //                 h_c,l = c_l (mu f_z - sqrt(f_x^2 + f_y^2 + eps)) + (1-c_l)
 //                                                     friction cone, relaxed barrier
+//                                                     (soft only)
 //                 h_h,l = (1-c_l)(p_z,l - z*_k,l)    swing height (state only), quadratic
 //               and at node N the terminal 1/2 dx'Qf dx (input blocks zero).
 //   equality    the foot constraint c_l v_l + (1-c_l) f_l (12 rows) and its
 //               Jacobians, for the null-space projection.
+//   inequality  (hard only) the rows h_c,l and their Jacobians.
 //
-// What bounds it.  A node's results are 3,541 floats (14.2 KB) against 48
-// forward-mode tangents of two SRBD evaluations (rk2) and the Gauss-Newton
-// products, some 50,000 operations: at 4,096 x 100 nodes 5.8 GB to write,
-// 1.7 ms at 3.35 TB/s, and 20-40 GFLOP, 0.3-0.6 ms at 67 TFLOP/s.  Bytes bound
-// it, so the design writes every result once, coalesced, and reads little.
+// What bounds it.  A node's results are 3,541 floats (14.2 KB; the hard
+// variant 196 more) against 48 forward-mode tangents of two SRBD evaluations
+// (rk2) and the Gauss-Newton products, some 50,000 operations: at 4,096 x 100
+// nodes 5.9 GB to move (6.2 GB hard), 1.76 ms at 3.35 TB/s (1.86 ms hard), and
+// 20-40 GFLOP, 0.3-0.6 ms at 67 TFLOP/s.  Bytes bound it, so the design writes
+// every result once, coalesced, and reads little.
 //
 // * One thread per tangent direction of a node: 24 directions of x, then 24
 //   of u.  Each thread runs the node's whole evaluation in dual numbers
@@ -55,7 +68,8 @@
 //   writing its own column, so that after one barrier the 48 threads of the
 //   node store every result row by row: thread t writes the quads (4
 //   entries, 16 bytes) t, t + 48, ... of each matrix, and a warp's stores
-//   fall on consecutive addresses.
+//   fall on consecutive addresses.  The hard variant's cone rows are stored
+//   the same way, from the same columns.
 // * Four nodes a block (192 threads, 40,128 bytes of static shared memory),
 //   three blocks an SM.  Nodes are numbered b (N+1) + k over the whole
 //   batch, so a block's nodes are neighbours in memory; node N of a scenario
@@ -103,6 +117,7 @@ constexpr int kDirs = kNx + kNu;  // threads of a node
 constexpr int kEq = 12;           // foot-constraint rows
 constexpr int kRows = 12;         // penalty rows: swing velocity, cone, swing height
 constexpr int kVel = 0, kCone = 4, kHeight = 8;
+constexpr int kIneq = 4;          // the hard variant's inequality rows: the cone's
 constexpr int kAngles = 15;        // yaw, pitch, roll; HAA, HFE, HFE + KFE of each leg
 constexpr int kNodesPerBlock = 4;
 constexpr int kThreads = kDirs * kNodesPerBlock;
@@ -162,6 +177,9 @@ struct Args {
   float* eq_f;           // [B, N, 12]
   float* eq_dfdx;        // [B, N, 12, 24]
   float* eq_dfdu;        // [B, N, 12, 24]
+  float* ineq_f;         // [B, N, 4], the hard variant only (else null)
+  float* ineq_dfdx;      // [B, N, 4, 24]
+  float* ineq_dfdu;      // [B, N, 4, 24]
   int batch, n;
   Constants k;
 };
@@ -545,7 +563,10 @@ K10_HD void store4(float* p, const F4& f) {
 }
 
 // Phase 2, thread t: the node's results, each matrix by quads of entries
-// t, t + 48, ... (a quad is 4 entries of one row).
+// t, t + 48, ... (a quad is 4 entries of one row).  kHardCone: the cone's
+// rows are an inequality, stored as such; their penalty reads zero, so they
+// add exact zeros to the cost's sums, and their Hessian sums are skipped.
+template <bool kHardCone>
 K10_HD void results(const Args& a, const Node& nd, int t, const float* sm) {
   const float* xu = sm + kOffXu;
   const float* track = sm + kOffTrack;
@@ -587,6 +608,10 @@ K10_HD void results(const Args& a, const Node& nd, int t, const float* sm) {
   float first[kRows], second[kRows], value[kRows];
   K10_UNROLL
   for (int r = 0; r < kRows; ++r) {
+    if (kHardCone && r >= kCone && r < kHeight) {  // no penalty
+      value[r] = first[r] = second[r] = 0.0f;
+      continue;
+    }
     const Penalty p = row_penalty(a.k, r, prim[kNx + kEq + r]);
     value[r] = p.value;
     first[r] = p.first;
@@ -623,13 +648,15 @@ K10_HD void results(const Args& a, const Node& nd, int t, const float* sm) {
         vel_uu.v[q] += wui * ruj.v[q];
       }
     }
-    K10_UNROLL
-    for (int r = kCone; r < kCone + 4; ++r) {
-      const float* row = jac + r * kDirs;
-      const float wui = row[kNx + i] * second[r];
-      const F4 ruj = load4(row + kNx + j);
+    if constexpr (!kHardCone) {
       K10_UNROLL
-      for (int q = 0; q < 4; ++q) cone_uu.v[q] += wui * ruj.v[q];
+      for (int r = kCone; r < kCone + 4; ++r) {
+        const float* row = jac + r * kDirs;
+        const float wui = row[kNx + i] * second[r];
+        const F4 ruj = load4(row + kNx + j);
+        K10_UNROLL
+        for (int q = 0; q < 4; ++q) cone_uu.v[q] += wui * ruj.v[q];
+      }
     }
     K10_UNROLL
     for (int r = kHeight; r < kHeight + 4; ++r) {
@@ -658,6 +685,17 @@ K10_HD void results(const Args& a, const Node& nd, int t, const float* sm) {
     const int i = e / kNx, j = e % kNx;
     store4(a.eq_dfdx + g * kEq * kNx + e, load4(eqj + i * kDirs + j));
     store4(a.eq_dfdu + g * kEq * kNu + e, load4(eqj + i * kDirs + kNx + j));
+  }
+
+  // The hard cone: its rows, their input Jacobian, and a state Jacobian of zeros.
+  if constexpr (kHardCone) {
+    if (t < kIneq) a.ineq_f[g * kIneq + t] = prim[kNx + kEq + kCone + t];
+    const F4 zero = {{0.0f, 0.0f, 0.0f, 0.0f}};
+    for (int e = 4 * t; e < kIneq * kNu; e += 4 * kDirs) {
+      const int i = e / kNu, j = e % kNu;
+      store4(a.ineq_dfdu + g * kIneq * kNu + e, load4(jac + (kCone + i) * kDirs + kNx + j));
+      store4(a.ineq_dfdx + g * kIneq * kNx + e, zero);
+    }
   }
 
   // Gradient row t (x, then u).
@@ -692,6 +730,7 @@ K10_HD void results(const Args& a, const Node& nd, int t, const float* sm) {
 
 // A node's whole program, thread t; every thread of a block meets every
 // barrier, a slot past the batch (live false) on node 0, writing nothing.
+template <bool kHardCone>
 K10_HD void node_program(const Args& a, const Node& nd, bool live, int t, float* sm) {
   stage(a, nd, t, sm);
   K10_SYNC();
@@ -700,7 +739,7 @@ K10_HD void node_program(const Args& a, const Node& nd, bool live, int t, float*
   K10_SYNC();
   tangents(a, nd, t, sm, tb);
   K10_SYNC();
-  if (live) results(a, nd, t, sm);
+  if (live) results<kHardCone>(a, nd, t, sm);
 }
 
 }  // namespace k10
@@ -710,15 +749,19 @@ K10_HD void node_program(const Args& a, const Node& nd, bool live, int t, float*
 
 namespace {
 
-// Three blocks an SM: 96 registers a thread (52 bytes spilled to the L1).  At (4096, 100) on an H100 this ran in 6.7 ms, against 8.4 ms
-// at two blocks (128 registers) and 7.3 ms at four (80, more spills).
+// Three blocks an SM: 96 registers a thread (52 bytes spilled to the L1), in
+// either variant.  At (4096, 100) on an H100 the soft variant ran in 6.7 ms,
+// against 8.4 ms at two blocks (128 registers) and 7.3 ms at four (80, more
+// spills); the hard one, which skips the cone's Hessian sums, in 5.9 ms where
+// the soft one took 6.3 in the same run.
+template <bool kHardCone>
 __global__ void __launch_bounds__(k10::kThreads, 3) lq_srbd_kernel(const k10::Args a) {
   __shared__ __align__(16) float smem[k10::kNodesPerBlock * k10::kNodeFloats];
   const int slot = threadIdx.x / k10::kDirs;
   const long long index = static_cast<long long>(blockIdx.x) * k10::kNodesPerBlock + slot;
   const bool live = index < static_cast<long long>(a.batch) * (a.n + 1);
-  k10::node_program(a, k10::node_of(a, live ? index : 0), live, threadIdx.x % k10::kDirs,
-                    smem + slot * k10::kNodeFloats);
+  k10::node_program<kHardCone>(a, k10::node_of(a, live ? index : 0), live,
+                               threadIdx.x % k10::kDirs, smem + slot * k10::kNodeFloats);
 }
 
 }  // namespace
@@ -727,29 +770,39 @@ extern "C" int lq_srbd_num_constants() { return k10::kNumConstants; }
 extern "C" int lq_srbd_nodes_per_block() { return k10::kNodesPerBlock; }
 extern "C" int lq_srbd_threads_per_block() { return k10::kThreads; }
 
-// Launches K10 on `stream`; returns the CUDA error code (0 on success).
-// Allocates nothing and does not synchronise.  `constants` is a host array
-// of lq_srbd_num_constants() floats.
+// Launches K10 on `stream`: the hard variant where the three ineq arrays
+// are given, the soft one where all three are null.  Returns the CUDA error
+// code (0 on success).  Allocates nothing and does not synchronise.
+// `constants` is a host array of lq_srbd_num_constants() floats.
 extern "C" int lq_srbd_launch(
     const float* xs, const float* us, const float* dt, const float* is_jump, const int* modes,
     const float* swing_z, const float* swing_vz, const float* x_ref, const float* u_ref,
     const float* Q, const float* R, const float* Qf, float* cost_f, float* cost_dfdx,
     float* cost_dfdu, float* cost_dfdxx, float* cost_dfdux, float* cost_dfduu, float* dyn_f,
-    float* dyn_dfdx, float* dyn_dfdu, float* eq_f, float* eq_dfdx, float* eq_dfdu, int batch,
-    int n, const float* constants, int num_constants, void* stream) {
-  if (batch <= 0 || n <= 0 || num_constants != k10::kNumConstants) {
+    float* dyn_dfdx, float* dyn_dfdu, float* eq_f, float* eq_dfdx, float* eq_dfdu,
+    float* ineq_f, float* ineq_dfdx, float* ineq_dfdu, int batch, int n,
+    const float* constants, int num_constants, void* stream) {
+  const bool hard = ineq_f != nullptr;
+  if (batch <= 0 || n <= 0 || num_constants != k10::kNumConstants ||
+      (ineq_dfdx != nullptr) != hard || (ineq_dfdu != nullptr) != hard) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   k10::Args a{xs, us, dt, is_jump, modes, swing_z, swing_vz, x_ref, u_ref, Q, R, Qf,
               cost_f, cost_dfdx, cost_dfdu, cost_dfdxx, cost_dfdux, cost_dfduu,
-              dyn_f, dyn_dfdx, dyn_dfdu, eq_f, eq_dfdx, eq_dfdu, batch, n, {}};
+              dyn_f, dyn_dfdx, dyn_dfdu, eq_f, eq_dfdx, eq_dfdu, ineq_f, ineq_dfdx, ineq_dfdu,
+              batch, n, {}};
   float* dst = reinterpret_cast<float*>(&a.k);
   for (int i = 0; i < k10::kNumConstants; ++i) dst[i] = constants[i];
   const long long nodes = static_cast<long long>(batch) * (n + 1);
   const long long blocks = (nodes + k10::kNodesPerBlock - 1) / k10::kNodesPerBlock;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  lq_srbd_kernel<<<static_cast<unsigned>(blocks), k10::kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(a);
+  const auto grid = static_cast<unsigned>(blocks);
+  const auto on = static_cast<cudaStream_t>(stream);
+  if (hard) {
+    lq_srbd_kernel<true><<<grid, k10::kThreads, 0, on>>>(a);
+  } else {
+    lq_srbd_kernel<false><<<grid, k10::kThreads, 0, on>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 #endif

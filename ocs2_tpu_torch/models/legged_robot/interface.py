@@ -133,8 +133,9 @@ def make_problem(
         problem = problem.add(cost_terms=(con.make_friction_cone_soft(),))
     else:
         problem = problem.add(inequality_terms=(con.friction_cone,))
-    if model_type == "srbd" and friction_cone == "soft" and project_foot_constraint:
-        # K10 computes this problem's whole LQ approximation on the card.
+    if model_type == "srbd" and project_foot_constraint:
+        # K10 computes this problem's whole LQ approximation on the card, in
+        # the variant of its friction cone.
         problem = dataclasses.replace(problem, lq_kernel=SrbdLqKernel(problem))
     return problem
 

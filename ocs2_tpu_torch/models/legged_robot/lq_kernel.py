@@ -2,12 +2,23 @@
 the problem's terms and the model, and the per-node inputs it is handed.
 
 ``interface.make_problem`` attaches an ``SrbdLqKernel`` to the problem it
-builds with the SRBD model, the soft friction cone and the projected foot
-constraint (``OptimalControlProblem.lq_kernel``); ``oc/approx.approximate_lq``
-hands it a call only where ``kernel_takes`` holds.  The weights and
-constants come from the term objects (the tracking weights Q and R, the
-terminal weight, the penalties' parameters) and from ``model.py`` /
-``constraints.py``; the kernel (``csrc/lq_srbd.cu``) holds none of them.
+builds with the SRBD model and the projected foot constraint
+(``OptimalControlProblem.lq_kernel``); ``oc/approx.approximate_lq`` hands it
+a call only where ``kernel_takes`` holds.  The kernel's variant follows the
+problem's friction cone, read from its terms:
+
+* soft, a relaxed-barrier cost term: K10 writes the cost with the barrier,
+  the dynamics and the foot constraint (``ineq`` None);
+* hard, the inequality ``constraints.friction_cone`` (no barrier in the
+  cost): K10 writes the cost without it, the dynamics, the foot constraint
+  and the cone's linearization as ``ineq`` (f [B, N, 4], dfdu [B, N, 4, 24]
+  and dfdx [B, N, 4, 24] of exact zeros), which ``solvers/ipm`` condenses.
+  At (4096, 100) these add 2 x 157 MB and 6.6 MB to the soft variant's
+  5.91 GB of traffic: a bytes bound of about 1.86 ms for 1.76.
+
+The weights and constants come from the term objects (the tracking weights Q
+and R, the terminal weight, the penalties' parameters) and from ``model.py``
+/ ``constraints.py``; the kernel (``csrc/lq_srbd.cu``) holds none of them.
 """
 from __future__ import annotations
 
@@ -35,20 +46,30 @@ def _penalty_form(term, g_fn, name: str) -> tuple:
 
 
 class SrbdLqKernel:
-    """K10 for one problem: the terms it computes and their constants."""
+    """K10 for one problem: the terms it computes, their constants, and the
+    variant ("soft" or "hard") that the problem's friction cone asks for."""
 
     method = lq_srbd_cuda.METHOD
 
     def __init__(self, problem):
-        track, velocity, cone = problem.cost_terms
+        track, velocity, *soft_cone = problem.cost_terms
         (height,) = problem.state_cost_terms
         (final,) = problem.final_cost_terms
         (velocity_scale,) = _penalty_form(velocity, con.swing_normal_velocity, "quadratic")
-        barrier_mu, barrier_delta = _penalty_form(cone, con.friction_cone, "relaxed_barrier")
         (height_scale,) = _penalty_form(height, con._swing_height_error, "quadratic")
+        if soft_cone:  # a relaxed barrier in the cost
+            (cone,) = soft_cone
+            barrier_mu, barrier_delta = _penalty_form(cone, con.friction_cone, "relaxed_barrier")
+            self.variant, inequalities = "soft", ()
+        else:  # an inequality; the kernel reads no barrier constant
+            barrier_mu = barrier_delta = float("nan")
+            self.variant, inequalities = "hard", (con.friction_cone,)
         if (problem.equality_terms != (con.foot_constraint,)
                 or problem.dynamics is not model.dynamics):
             raise ValueError("the SRBD LQ kernel takes the SRBD model's projected foot constraint")
+        if problem.inequality_terms != inequalities:
+            raise ValueError("the SRBD LQ kernel takes the friction cone either as a cost term "
+                             "or as the only inequality")
         self._terms = tuple(getattr(problem, f) for f in _FIELDS)
         self.weights = lq_srbd_cuda.Weights(track.Q, track.R, final.Qf)
         self.target_key = track.target_key
@@ -86,18 +107,21 @@ class SrbdLqKernel:
 
     def approximate(self, grid, xs, us, params):
         """``approximate_lq``'s LQData of the batch (rk2 in one step), by one
-        launch of K10."""
+        launch of K10's variant."""
         grid = grid.device(xs.device)
+        hard = self.variant == "hard"
         r = lq_srbd_cuda.lq_srbd_cuda(
             xs.contiguous(), us.contiguous(), self.node_inputs(grid, params),
-            self.weights, self.constants)
+            self.weights, self.constants, hard_cone=hard)
+        ineq = (VectorLinearApproximation(f=r.ineq_f, dfdx=r.ineq_dfdx, dfdu=r.ineq_dfdu)
+                if hard else None)
         return LQData(
             cost=ScalarQuadraticApproximation(
                 f=r.cost_f, dfdx=r.cost_dfdx, dfdu=r.cost_dfdu, dfdxx=r.cost_dfdxx,
                 dfdux=r.cost_dfdux, dfduu=r.cost_dfduu),
             dynamics=DiscreteTransition(f=r.dyn_f, dfdx=r.dyn_dfdx, dfdu=r.dyn_dfdu),
             eq=VectorLinearApproximation(f=r.eq_f, dfdx=r.eq_dfdx, dfdu=r.eq_dfdu),
-            state_eq=None, ineq=None, state_ineq=None, final_eq=None,
+            state_eq=None, ineq=ineq, state_ineq=None, final_eq=None,
         )
 
 

@@ -9,8 +9,9 @@ inside that map, the generic cost/constraint fallbacks are
 kernel of the whole approximation (``OptimalControlProblem.lq_kernel``, K10
 for the legged SRBD problem); ``approximate_lq`` hands it the calls it
 computes exactly (``kernel_takes``) and counts each path in
-``path_counts``.  ``approximate_lq_ct`` gives the continuous-time LQ data of
-the SLQ backward pass (``ops/riccati_ct.py``) the generic way.
+``path_counts``, the kernel's calls by variant in ``variant_counts``.
+``approximate_lq_ct`` gives the continuous-time LQ data of the SLQ backward
+pass (``ops/riccati_ct.py``) the generic way.
 """
 from __future__ import annotations
 
@@ -239,6 +240,10 @@ def _vector_from(prefix, out: dict) -> Optional[VectorLinearApproximation]:
 # Calls of approximate_lq by the path they took: "kernel", the problem's
 # hand-written kernel (K10, models/legged_robot/lq_kernel), or "generic".
 path_counts = {"kernel": 0, "generic": 0}
+# The kernel's calls by the variant that computed them (``lq_kernel.variant``):
+# K10's "soft" (the friction cone a relaxed barrier in the cost) or "hard"
+# (the cone an inequality, its rows written as ``ineq``).
+variant_counts = {"soft": 0, "hard": 0}
 
 
 def kernel_takes(problem: OptimalControlProblem, params: Any, method: str, substeps: int,
@@ -277,6 +282,7 @@ def approximate_lq(
     same = xs.device == us.device and xs.dtype == us.dtype
     if same and kernel_takes(problem, params, method, substeps, xs.device, xs.dtype):
         path_counts["kernel"] += 1
+        variant_counts[problem.lq_kernel.variant] += 1
         return problem.lq_kernel.approximate(grid, xs, us, params)
     path_counts["generic"] += 1
     return _approximate_lq_generic(problem, grid, xs, us, params, method, substeps)

@@ -1,12 +1,15 @@
 """K10, the legged SRBD problem's whole LQ approximation on the card:
 wrapper of ``csrc/lq_srbd.cu``.
 
-One launch computes every leaf of ``oc.approx.LQData`` for the problem that
-``models/legged_robot/interface.make_problem`` builds with the SRBD model,
-the soft friction cone and the projected foot constraint: the discrete
-dynamics and their Jacobians, the dt-weighted running cost quadratized in
-closed form and by Gauss-Newton, the terminal cost, and the foot
-constraint's linearization.  Its plain version is
+One launch computes every leaf of ``oc.approx.LQData`` for the problems that
+``models/legged_robot/interface.make_problem`` builds with the SRBD model and
+the projected foot constraint: the discrete dynamics and their Jacobians, the
+dt-weighted running cost quadratized in closed form and by Gauss-Newton, the
+terminal cost, and the foot constraint's linearization.  Two variants of one
+source differ in the friction cone: the soft one (``hard_cone=False``) holds
+its relaxed barrier in the cost; the hard one leaves it out of the cost and
+writes the cone's 4 rows as the inequality's linearization (``ineq_f``,
+``ineq_dfdu``, and ``ineq_dfdx``, exactly zero).  Its plain version is
 ``oc.approx._approximate_lq_generic`` on the same problem, which ``vmap``s
 ``jacfwd`` over the nodes.  The discrete dynamics are one step of rk2 (the
 explicit midpoint rule), the integrator every caller of this problem runs.
@@ -29,6 +32,7 @@ from . import _build
 SOURCE = "lq_srbd.cu"
 NX = NU = 24
 NE = 12  # foot-constraint rows
+NI = 4  # the hard variant's inequality rows: the friction cone's, one a leg
 THREADS_PER_NODE = NX + NU  # one thread a tangent direction
 NODES_PER_BLOCK = 4
 # The integrator of core/integrate.discretize the kernel implements, in one step.
@@ -67,7 +71,8 @@ class Weights(NamedTuple):
 
 
 class Results(NamedTuple):
-    """The kernel's outputs, every one contiguous [B, ...]."""
+    """The kernel's outputs, every one contiguous [B, ...]; the ineq ones are
+    the hard variant's, None in the soft one's."""
 
     cost_f: torch.Tensor  # [B, N+1]
     cost_dfdx: torch.Tensor  # [B, N+1, 24]
@@ -81,13 +86,18 @@ class Results(NamedTuple):
     eq_f: torch.Tensor  # [B, N, 12]
     eq_dfdx: torch.Tensor  # [B, N, 12, 24]
     eq_dfdu: torch.Tensor  # [B, N, 12, 24]
+    ineq_f: Optional[torch.Tensor] = None  # [B, N, 4]
+    ineq_dfdx: Optional[torch.Tensor] = None  # [B, N, 4, 24]
+    ineq_dfdu: Optional[torch.Tensor] = None  # [B, N, 4, 24]
 
 
-def result_shapes(batch: int, n: int) -> Results:
+def result_shapes(batch: int, n: int, hard_cone: bool = False) -> Results:
+    """The outputs' shapes, None for those the variant does not write."""
+    ineq = ((batch, n, NI), (batch, n, NI, NX), (batch, n, NI, NU)) if hard_cone else ()
     return Results(
         (batch, n + 1), (batch, n + 1, NX), (batch, n + 1, NU), (batch, n + 1, NX, NX),
         (batch, n + 1, NU, NX), (batch, n + 1, NU, NU), (batch, n, NX), (batch, n, NX, NX),
-        (batch, n, NX, NU), (batch, n, NE), (batch, n, NE, NX), (batch, n, NE, NU),
+        (batch, n, NX, NU), (batch, n, NE), (batch, n, NE, NX), (batch, n, NE, NU), *ineq,
     )
 
 
@@ -147,7 +157,7 @@ def _library() -> ctypes.CDLL:
     if _LIBRARY is None:
         lib = _build.load_library(SOURCE, DEFINES)
         lib.lq_srbd_launch.argtypes = (
-            [ctypes.c_void_p] * 24 + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int,
+            [ctypes.c_void_p] * 27 + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int,
                                                          ctypes.c_void_p])
         lib.lq_srbd_launch.restype = ctypes.c_int
         probes = (lib.lq_srbd_num_constants, lib.lq_srbd_nodes_per_block,
@@ -165,20 +175,22 @@ def _library() -> ctypes.CDLL:
 
 
 def lq_srbd_cuda(xs, us, nodes: NodeInputs, weights: Weights,
-                 constants: Sequence[float]) -> Results:
+                 constants: Sequence[float], hard_cone: bool = False) -> Results:
     """The LQ approximation of a batch, xs [B, N+1, 24], us [B, N, 24], on
-    the card: one launch on the current stream."""
+    the card: one launch on the current stream, of the hard variant where
+    ``hard_cone``."""
     global launch_count, last_launch_dims
     batch, n = check_inputs(xs, us, nodes, weights, constants)
     if not xs.is_cuda:
         raise ValueError("lq_srbd_cuda takes CUDA tensors")
     lib = _library()
-    results = Results(*(torch.empty(s, dtype=torch.float32, device=xs.device)
-                        for s in result_shapes(batch, n)))
+    results = Results(*(None if s is None else torch.empty(s, dtype=torch.float32,
+                                                            device=xs.device)
+                        for s in result_shapes(batch, n, hard_cone)))
     host_constants = (ctypes.c_float * len(CONSTANTS))(*constants)
     with torch.cuda.device(xs.device):
         err = lib.lq_srbd_launch(
-            *(t.data_ptr() for t in (xs, us, *nodes, *weights, *results)),
+            *(None if t is None else t.data_ptr() for t in (xs, us, *nodes, *weights, *results)),
             batch, n, ctypes.addressof(host_constants), len(CONSTANTS),
             torch.cuda.current_stream().cuda_stream,
         )

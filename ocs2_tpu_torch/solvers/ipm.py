@@ -171,6 +171,20 @@ def _init_slack_dual(h: Optional[Tensor], mu: Tensor, s_min: float, shape):
     return s, _bcast(mu, s) / s
 
 
+def augment(problem: OptimalControlProblem, project: bool) -> OptimalControlProblem:
+    """The problem whose LQ approximation ``solve`` takes each iteration: AL
+    takes only the equality families; the inequality terms are put back so
+    that approximate_lq linearizes them for the condensation.  Built with
+    ``dataclasses.replace``, it keeps the problem's ``lq_kernel``, which
+    takes it where no AL term was added (``oc/approx.kernel_takes``)."""
+    eq_only = dataclasses.replace(problem, inequality_terms=(), state_inequality_terms=())
+    return dataclasses.replace(
+        augment_problem(eq_only, project_equalities=project),
+        inequality_terms=problem.inequality_terms,
+        state_inequality_terms=problem.state_inequality_terms,
+    )
+
+
 def _condense(lq, ipm: IpmVars):
     """Condense the slack/dual blocks into the stage LQ data.
 
@@ -303,14 +317,7 @@ def solve(
     nx, nu = problem.nx, problem.nu
     grid = grid.device(dev)
     project = settings.project_equalities and bool(problem.equality_terms)
-    # AL takes only the equality families; the inequality terms are put back
-    # so that approximate_lq linearizes them for the condensation.
-    eq_only = dataclasses.replace(problem, inequality_terms=(), state_inequality_terms=())
-    aug = dataclasses.replace(
-        augment_problem(eq_only, project_equalities=project),
-        inequality_terms=problem.inequality_terms,
-        state_inequality_terms=problem.state_inequality_terms,
-    )
+    aug = augment(problem, project)
     do_convexify = (
         not aug.cost_structure_psd if settings.convexify == "auto" else bool(settings.convexify)
     )
